@@ -1,0 +1,28 @@
+"""Architecture registry of the port: ``get(name)`` / ``get_smoke(name)``.
+
+Each module defines ``CONFIG`` (the published configuration) and
+``SMOKE`` (a reduced same-family config for CPU tests).  Only qwen2-0.5b
+is ported so far; the reference registry (``repro.configs``) lists the
+others.
+"""
+from __future__ import annotations
+
+import importlib
+
+ARCH_IDS = ("qwen2_0p5b",)
+ALIASES = {"qwen2-0.5b": "qwen2_0p5b"}
+
+
+def _module(name: str):
+    mod = ALIASES.get(name, name.replace("-", "_").replace(".", "p"))
+    if mod not in ARCH_IDS:
+        raise KeyError(f"architecture {name!r} is not ported; have {sorted(ALIASES)}")
+    return importlib.import_module(f"repro_torch.configs.{mod}")
+
+
+def get(name: str):
+    return _module(name).CONFIG
+
+
+def get_smoke(name: str):
+    return _module(name).SMOKE

@@ -1,0 +1,26 @@
+"""Dense-decoder model substrate of the port (paged serving slice)."""
+from .config import ArchConfig, EncoderConfig, MoEConfig, SSMConfig
+from .model import (
+    copy_paged_block,
+    decode_step,
+    init_paged_cache,
+    init_params,
+    prefill_chunk_step,
+    segments,
+)
+from .programmed import program_params, programmed_byte_size
+
+__all__ = [
+    "ArchConfig",
+    "MoEConfig",
+    "SSMConfig",
+    "EncoderConfig",
+    "init_params",
+    "init_paged_cache",
+    "copy_paged_block",
+    "decode_step",
+    "prefill_chunk_step",
+    "segments",
+    "program_params",
+    "programmed_byte_size",
+]
