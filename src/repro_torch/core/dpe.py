@@ -9,12 +9,15 @@ K-block whose bit-line current is ADC-quantised; partial sums are
 recombined digitally.  Modes: ``faithful`` (paper semantics), ``fast``
 (digital slice folding, exact when the ADC is ideal) and ``digital``.
 
-Faithful layers with backend ``auto``/``pallas`` go through the fused
-sliced matmul of :mod:`repro_torch.kernels.ops` — the hand-written CUDA
-kernel on a CUDA tensor, its plain version on the CPU.  Backend ``xla``
-keeps the vectorized plain engine :func:`_faithful_matmul`;
-:func:`_faithful_matmul_loop` is the seed slice-pair loop, kept verbatim
-as the oracle.  The circuit backend is not ported yet.
+Faithful layers go through the fused sliced matmul of
+:mod:`repro_torch.kernels.ops` — the hand-written CUDA kernel on a CUDA
+tensor, its plain version on the CPU.  The backend sets the row tile of
+the ``dynamic`` ADC range: the whole call for ``xla`` (the reference's
+vectorized engine), 128 rows for ``auto`` / ``pallas`` (its kernel).
+:func:`_faithful_matmul` is the vectorized plain engine and
+:func:`_faithful_matmul_loop` the seed slice-pair loop, kept verbatim;
+the tests hold the engines against each other and the reference.  The
+circuit backend is not ported yet.
 """
 from __future__ import annotations
 
@@ -24,10 +27,9 @@ import torch
 
 from repro_torch.kernels import ops as _kops
 
-from .device import noisy_slice_values
 from .engine import DPEConfig
 from .quant import adc_quantize, block_scale, dac_quantize, div, quantize
-from .rng import fold_in
+from .prng import fold_in
 from .slicing import slice_int, slice_significances
 
 __all__ = [
@@ -41,6 +43,7 @@ __all__ = [
     "dpe_matmul_folded",
     "dpe_apply",
     "resolve_backend",
+    "relative_error",
 ]
 
 
@@ -99,11 +102,13 @@ def _slice_field(u: torch.Tensor, off: int, width: int) -> torch.Tensor:
 
 
 def prepare_weight(
-    w: torch.Tensor, cfg: DPEConfig, key: int | None = None
+    w: torch.Tensor, cfg: DPEConfig, key=None, kernels: bool = True
 ) -> PreparedWeight:
     """Quantise, slice and 'program' a weight matrix (the paper's
-    ``update_weight()``).  ``key`` drives programming noise (slice ``s``
-    draws with ``fold_in(key, s)``); None means ideal devices.  The
+    ``update_weight()``).  ``key`` (a :mod:`~repro_torch.core.prng` key)
+    drives programming noise (slice ``s`` draws with ``fold_in(key, s)``,
+    through :func:`repro_torch.kernels.ops.program_noise`, whose plain
+    version ``kernels=False`` picks); None means ideal devices.  The
     slices are written one at a time, so the transient memory is one
     slice plane, not the whole integer slice stack."""
     if w.dim() != 2:
@@ -118,8 +123,9 @@ def prepare_weight(
     for s, (width, off) in enumerate(zip(spec.bits, spec.lsb_offsets)):
         v = _slice_field(u, off, width)
         if cfg.cv > 0.0 and key is not None:
-            v = noisy_slice_values(
-                fold_in(key, s), v, width, cfg.hgs, cfg.lgs, cfg.cv
+            v = _kops.program_noise(
+                fold_in(key, s), v, bits=width, hgs=cfg.hgs, lgs=cfg.lgs, cv=cfg.cv,
+                kernels=kernels,
             )
         out[s] = v.reshape(nk * bk, nn * bn)
     return PreparedWeight(slices=out, scale=scale)
@@ -264,7 +270,7 @@ def _fast_matmul(xs, sx, ws, sw, cfg: DPEConfig) -> torch.Tensor:
 
 
 def fold_weight_noisy(
-    w: torch.Tensor, cfg: DPEConfig, key: int | None = None
+    w: torch.Tensor, cfg: DPEConfig, key=None, kernels: bool = True
 ) -> torch.Tensor:
     """Fast-mode weight pipeline: quantise per block, apply per-slice
     programming noise, recombine digitally — never materialising the
@@ -276,8 +282,9 @@ def fold_weight_noisy(
     for s, (width, off) in enumerate(zip(spec.bits, spec.lsb_offsets)):
         v = _slice_field(u, off, width)
         if cfg.cv > 0.0 and key is not None:
-            v = noisy_slice_values(
-                fold_in(key, s), v, width, cfg.hgs, cfg.lgs, cfg.cv
+            v = _kops.program_noise(
+                fold_in(key, s), v, bits=width, hgs=cfg.hgs, lgs=cfg.lgs, cv=cfg.cv,
+                kernels=kernels,
             )
         acc = acc + float(sig[s]) * v
     nk, bk, nn, bn = u.shape
@@ -314,15 +321,21 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def resolve_backend(cfg: DPEConfig) -> str:
     """Concrete engine for ``cfg``: ``"fused"`` (the fused sliced matmul
     of :mod:`repro_torch.kernels.ops`, which picks the kernel or its
-    plain version by tensor device) for faithful layers on ``auto`` /
-    ``pallas``, else ``"xla"`` (the plain vectorized engines)."""
+    plain version by tensor device) for faithful layers, else ``"xla"``
+    (the plain vectorized engines)."""
     if cfg.backend == "circuit":
         raise NotImplementedError(
             "the circuit backend is not ported to repro_torch yet"
         )
-    if cfg.mode == "faithful" and cfg.backend in ("auto", "pallas"):
-        return "fused"
-    return "xla"
+    return "fused" if cfg.mode == "faithful" else "xla"
+
+
+def range_rows(cfg: DPEConfig, m: int) -> int:
+    """Rows that share one ``dynamic`` ADC range in a fused call of ``m``
+    rows: all of them for ``xla`` (the reference's vectorized engine
+    ranges over the whole call), 128 for ``auto`` / ``pallas`` (the
+    reference kernel's row tile)."""
+    return 128 if cfg.backend in ("auto", "pallas") else max(m, 1)
 
 
 def dpe_matmul_prepared(
@@ -341,14 +354,11 @@ def dpe_matmul_prepared(
             xm.to(torch.float32), pw.slices, pw.scale,
             input_spec=cfg.input_spec, weight_spec=cfg.weight_spec,
             array_size=cfg.array_size, rdac=cfg.rdac, radc=cfg.radc,
-            adc_mode=cfg.adc_mode, kernels=kernels,
+            adc_mode=cfg.adc_mode, bm=range_rows(cfg, xm.shape[0]), kernels=kernels,
         )
         return y[:, :n].reshape(*lead, n)
     xs, sx = prepare_input(xm, cfg)
-    if cfg.mode == "faithful":
-        y = _faithful_matmul(xs, sx, pw.slices, pw.scale, cfg)
-    else:
-        y = _fast_matmul(xs, sx, pw.slices, pw.scale, cfg)
+    y = _fast_matmul(xs, sx, pw.slices, pw.scale, cfg)
     return y[:, :n].reshape(*lead, n)
 
 
@@ -367,8 +377,9 @@ def dpe_matmul_folded(
 def program_weight(
     w: torch.Tensor,
     cfg: DPEConfig | None,
-    key: int | None = None,
+    key=None,
     t_prog: float | None = None,
+    kernels: bool = True,
 ) -> PreparedWeight | FoldedWeight | None:
     """Program one weight matrix for ``cfg``'s mode: ``PreparedWeight``
     (faithful), ``FoldedWeight`` (fast) or ``None`` (digital).
@@ -376,8 +387,8 @@ def program_weight(
     if cfg is None or cfg.mode == "digital":
         return None
     if cfg.mode == "fast":
-        return FoldedWeight(fold_weight_noisy(w, cfg, key), t_prog=t_prog)
-    return prepare_weight(w, cfg, key)._replace(t_prog=t_prog)
+        return FoldedWeight(fold_weight_noisy(w, cfg, key, kernels), t_prog=t_prog)
+    return prepare_weight(w, cfg, key, kernels)._replace(t_prog=t_prog)
 
 
 def dpe_apply(
@@ -397,10 +408,15 @@ def dpe_matmul(
     x: torch.Tensor,
     w: torch.Tensor,
     cfg: DPEConfig,
-    key: int | None = None,
+    key=None,
     kernels: bool = True,
 ) -> torch.Tensor:
     """End-to-end simulated ``x @ w`` (programs the weight on the fly)."""
     if cfg.mode == "digital":
         return x.to(torch.float32) @ w.to(torch.float32)
-    return dpe_apply(x, program_weight(w, cfg, key), w.shape[1], cfg, kernels)
+    return dpe_apply(x, program_weight(w, cfg, key, kernels=kernels), w.shape[1], cfg, kernels)
+
+
+def relative_error(sim: torch.Tensor, ideal: torch.Tensor) -> torch.Tensor:
+    """Paper's RE metric: ``||sim - ideal||_2 / ||ideal||_2`` (0-d)."""
+    return torch.linalg.norm(sim - ideal) / torch.clamp_min(torch.linalg.norm(ideal), 1e-30)

@@ -24,10 +24,15 @@ class DPEConfig:
     cv=5%, 8-bit DAC, 10-bit ADC, 64x64 arrays).  Field meanings are the
     reference's; ``backend``:
 
-    * ``"auto"`` / ``"pallas"`` — faithful layers go through the fused
-      sliced matmul (:func:`repro_torch.kernels.ops.fused_sliced_matmul`):
-      the CUDA kernel on a CUDA tensor, its plain version on the CPU;
-    * ``"xla"`` — the vectorized plain-PyTorch engine (never a kernel);
+    * ``"xla"`` (the default, as in the reference) — the reference's
+      vectorized engine: a ``"dynamic"`` ADC range spans every row of
+      the call.  Faithful layers compute it with the fused sliced matmul
+      (:func:`repro_torch.kernels.ops.fused_sliced_matmul`: the CUDA
+      kernel on a CUDA tensor, its plain version on the CPU) with one
+      row tile that covers the whole call, which is the same function;
+    * ``"auto"`` / ``"pallas"`` — the reference's kernel path: the same
+      fused sliced matmul, with the ``"dynamic"`` range over each
+      128-row tile (the two differ only past 128 rows);
     * ``"circuit"`` — the IR-drop circuit model, not ported yet.
     """
 

@@ -1,11 +1,13 @@
 """Hardware layers — MemIntelli §3.4, Fig. 8 (port of
-``repro/core/layers.py``, inference only).
+``repro/core/layers.py``).
 
-``mem_linear`` is the paper's ``LinearMem``: the product runs through the
-simulated DPE (or digitally) and the bias is added digitally.
-``MemPolicy`` resolves every layer name to its own ``DPEConfig`` (or
-``None`` → digital): layer-wise mixed precision.  The straight-through
-``autograd.Function`` of the training path is not ported yet.
+``mem_matmul`` is the paper's "hardware function": the forward pass runs
+through the simulated DPE, the backward pass applies the incoming error
+to the full-precision operands (straight-through estimator), so a model
+trains through it.  ``mem_linear`` is the paper's ``LinearMem``: the
+product runs through the simulated DPE (or digitally) and the bias is
+added digitally.  ``MemPolicy`` resolves every layer name to its own
+``DPEConfig`` (or ``None`` → digital): layer-wise mixed precision.
 """
 from __future__ import annotations
 
@@ -17,9 +19,44 @@ import torch
 
 from .dpe import FoldedWeight, PreparedWeight, dpe_apply, dpe_matmul
 from .engine import DPEConfig
-from .rng import fold_in
+from .prng import fold_in
 
-__all__ = ["mem_matmul_prepared", "mem_linear", "MemPolicy", "layer_key", "DIGITAL"]
+__all__ = [
+    "mem_matmul",
+    "mem_matmul_prepared",
+    "mem_linear",
+    "MemPolicy",
+    "layer_key",
+    "DIGITAL",
+]
+
+
+class _MemMatmul(torch.autograd.Function):
+    """Forward through the DPE; straight-through backward (reference
+    ``layers.py::_bwd``): ``gx = g @ w.T`` in g's dtype, cast to x's;
+    ``gw = x.T @ g`` in float32 over the flattened leading dims, cast to
+    w's dtype; no gradient for the key or the configuration."""
+
+    @staticmethod
+    def forward(ctx, x, w, key, cfg, kernels):
+        ctx.save_for_backward(x, w)
+        return dpe_matmul(x, w, cfg, key, kernels).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = (g @ w.t().to(g.dtype)).to(x.dtype)
+        k = x.shape[-1]
+        gw = x.reshape(-1, k).t().float() @ g.reshape(-1, g.shape[-1]).float()
+        return gx, gw.to(w.dtype), None, None, None
+
+
+def mem_matmul(x: torch.Tensor, w: torch.Tensor, key, cfg: DPEConfig,
+               kernels: bool = True) -> torch.Tensor:
+    """Simulated-hardware ``x @ w`` (``(..., K) @ (K, N)``) with the
+    straight-through backward; ``key`` drives programming noise.
+    Returns ``x``'s dtype."""
+    return _MemMatmul.apply(x, w, key, cfg, kernels)
 
 
 def mem_matmul_prepared(
@@ -39,25 +76,25 @@ def mem_linear(
     w: torch.Tensor,
     b: torch.Tensor | None,
     cfg: DPEConfig | None,
-    key: int,
+    key,
     prepared: PreparedWeight | FoldedWeight | None = None,
     kernels: bool = True,
 ) -> torch.Tensor:
     """Hardware matmul + (digital) bias.  ``prepared`` skips the per-call
     weight pipeline; without it the weight is programmed on the fly with
-    ``key`` (inference semantics, no gradient)."""
+    ``key`` through :func:`mem_matmul` (straight-through gradients)."""
     if cfg is None or cfg.mode == "digital":
         y = x @ w.to(x.dtype)
     elif prepared is not None:
         y = mem_matmul_prepared(x, prepared, w.shape[1], cfg, kernels)
     else:
-        y = dpe_matmul(x, w, cfg, key, kernels).to(x.dtype)
+        y = mem_matmul(x, w, key, cfg, kernels)
     if b is not None:
         y = y + b.to(y.dtype)
     return y
 
 
-def layer_key(base: int, name: str) -> int:
+def layer_key(base, name: str):
     """Deterministic per-layer key (stable across processes)."""
     return fold_in(base, zlib.crc32(name.encode()) & 0x7FFFFFFF)
 

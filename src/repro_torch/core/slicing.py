@@ -74,6 +74,9 @@ class SliceSpec:
         b = self.total_bits
         return 2 ** (b - 1) - 1 if self.signed else 2**b - 1
 
+    def with_kind(self, kind: str) -> "SliceSpec":
+        return SliceSpec(kind, self.bits, self.signed)
+
 
 def slice_significances(spec: SliceSpec) -> np.ndarray:
     """Signed recombination weight of every slice, MSB-first.  Static."""

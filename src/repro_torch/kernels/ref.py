@@ -11,8 +11,7 @@ accumulator, K-blocks summed in order from zero.
 
 Each slice-pair dot is the CUDA kernel's chain of float32 fused
 multiply-adds over the crossbar rows ``0..bk-1`` in order (every step
-computed in float64 and rounded once, which equals the fused
-multiply-add except for a double rounding, about one step in 2**29).
+computed in float64 and rounded once more to float32, see :func:`fma`).
 The ADC is a step function of that partial sum, so the order matters:
 two float32 orders differ in the last bits often enough to move ADC
 codes at rel-Fro ~5e-4 on qwen2-0.5b shapes, while a library GEMM's
@@ -65,10 +64,14 @@ def sliced_matmul_ref(
 
 
 def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 ``a*b + c`` with one rounding, as the kernels' ``fmaf``:
-    the product of two float32 values is exact in float64, so this is
-    the fused multiply-add except for a double rounding (about one call
-    in 2**29).  Broadcasts like ``torch.addcmul``."""
+    """float32 ``a*b + c`` as the kernels' ``fmaf``: float64 holds the
+    product of two float32 values exactly, and the sum is rounded to
+    float64 and then to float32.  The two roundings differ from the one
+    of a fused multiply-add only where the first lands exactly halfway
+    between two float32 values without being exact, about once in 2**29
+    inexact sums; the exact form, :func:`repro_torch.core.xmath.fma`,
+    costs several times more on these slice-pair chains.  Broadcasts
+    like ``torch.addcmul``."""
     return torch.addcmul(c.to(torch.float64), a.to(torch.float64), b.to(torch.float64)).to(
         torch.float32
     )

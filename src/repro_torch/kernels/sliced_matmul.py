@@ -1,18 +1,25 @@
-"""K1 — the fused faithful DPE matmul: CUDA kernel and plain version.
+"""K1 and K4 — the faithful DPE matmul: CUDA kernels and plain versions.
 
-Replaces ``repro/kernels/sliced_matmul.py::fused_sliced_matmul_pallas``
+K1, the fused kernel, replaces
+``repro/kernels/sliced_matmul.py::fused_sliced_matmul_pallas``
 (``pallas_call`` at :352; body ``_fused_kernel`` :246 with
 ``_prep_input_tile`` :208 and ``_adc`` :69).  One call runs, per
 (row, K-block): absmax quantisation, two's-complement bit-slicing and the
 DAC of the raw activations; then every Sx·Sw slice-pair dot, the per-pair
-ADC (``dynamic`` over the logical 128-row tile, ``dynamic_row`` per row,
+ADC (``dynamic`` over a logical ``bm``-row tile, ``dynamic_row`` per row,
 ``fullscale`` static) and ``round(p/step)·step``; then the recombination
 by ``sigx·sigw`` and the block scales ``sx·sw``; K-blocks summed in order.
 
-Kernel (``csrc/sliced_matmul.cu``): one block owns the 128 bit-lines
-(columns) of one n-block for one K-block and a few rows, so the
-``dynamic_row`` range is a block-local reduction; the input rows are
-prepared in shared memory; four groups of 128 threads each stream one
+K4, the staged kernel, replaces ``sliced_matmul_pallas`` (``pallas_call``
+at :185; body ``_kernel`` :90): the same product on inputs already
+sliced and DAC'd by ``core.dpe.prepare_input`` (``xs``, ``sx``).  Its
+plain version is ``kernels/ref.py::sliced_matmul_ref``.
+
+Kernels (``csrc/sliced_matmul.cuh``, one source per crossbar tile size
+``bk = bn`` ∈ {32, 64, 128}): one block owns the bit-lines (columns) of
+one n-block for one K-block and a few rows, so the ``dynamic_row`` range
+is a block-local reduction; the input rows are prepared (K1) or copied
+(K4) into shared memory; four groups of ``bn`` threads each stream one
 weight slice's columns at once (so a block keeps four loads per column
 in flight, not one chain) and keep the Sx×rows partial sums in
 registers, one in-order fused multiply-add chain per partial sum; the
@@ -21,16 +28,22 @@ K-blocks run in parallel blocks that write per-K-block partials; a
 second small kernel adds them in K order starting from zero — the
 reference's sequential accumulator, so the split changes no rounding.
 The M tail is masked, not padded; ``dynamic`` mode walks the whole
-logical 128-row tile in one block (two passes: range, then quantise).
+logical ``bm``-row tile in one block (two passes: range, then quantise),
+for K1 at any ``bm`` (the default backend passes ``bm = M``), for K4 at
+``bm`` ∈ {32, 64, 128}.
+Rows per sub-chunk drop from 8 to 4 when Sx·Sw > 36, so the quantised
+pair buffer of every preset fits a block's shared memory.
 
 Bound on an H100 (SXM, 3.35 TB/s, 67 TFLOP/s f32 without tensor cores):
 decode (M ≤ slots) reads every programmed slice once — 16 B per weight
 (4 f32 slices), 7.9 GB per qwen2-0.5b decode step, 2.4 ms — so it is
 bytes-bound; a 32-token prefill chunk does 16·2·M·K·N ≈ 0.37 TFLOP of
 f32 work over the 24 layers, 5.5 ms, operations-bound (the vocab head
-runs on the final chunk's last token only).  This first kernel uses CUDA-core
-f32 FMAs (noisy slices are not integers, so a bf16/TF32 tensor-core dot
-would not be exact) and no TMA/wgmma; making it fast is later work.
+runs on the final chunk's last token only).  K4 at the paper's Table 2
+shape (M, K, N = 128, 1024, 1024, int8, 64×64) does 16·2·M·K·N = 4.3
+GFLOP over 18.5 MB: operations-bound.  The kernels use CUDA-core f32
+FMAs (noisy slices are not integers, so a bf16/TF32 tensor-core dot
+would not be exact) and no TMA/wgmma; making them fast is later work.
 """
 from __future__ import annotations
 
@@ -46,12 +59,20 @@ from repro_torch.core.slicing import SliceSpec, slice_significances
 from .build import LaunchCounter, check, library
 from .ref import sliced_matmul_ref
 
-__all__ = ["fused_sliced_matmul_ref", "fused_sliced_matmul_cuda", "counter"]
+__all__ = [
+    "fused_sliced_matmul_ref",
+    "fused_sliced_matmul_cuda",
+    "staged_sliced_matmul_cuda",
+    "counter",
+    "staged_counter",
+]
 
 _EPS = 1e-30
-TILE = 128  # the kernel's crossbar tile: bk = bn = 128
+TILES = (32, 64, 128)  # square crossbar tiles bk = bn the kernels take
+INPUT_SLICES = (3, 4, 5, 6, 8)  # input slice counts the kernels are built for
 MAX_SLICES = 8
 counter = LaunchCounter("fused_sliced_matmul")
+staged_counter = LaunchCounter("sliced_matmul")
 
 
 def _prep_input(x: torch.Tensor, spec: SliceSpec, bk: int, rdac: int):
@@ -160,23 +181,67 @@ def _spec_arrays(input_spec, weight_spec, rdac, radc, adc_mode, bk):
 
 
 @functools.lru_cache(maxsize=None)
-def _entry():
-    fn = library().fused_sliced_matmul_launch
+def _entry(name: str):
+    fn = getattr(library(), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # x, ldx, M, K
+    head = (
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]  # x, ldx, M, K
+        if name == "fused_sliced_matmul_launch"
+        else [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]  # xs, sx, M
+    )
+    fn.argtypes = head + [
         ctypes.c_void_p, ctypes.c_void_p,  # ws, sw
         ctypes.c_void_p, ctypes.c_void_p,  # part, out
         ctypes.c_int, ctypes.c_int,  # Kp, Np
+        ctypes.c_int, ctypes.c_int,  # tile, bm
         ctypes.c_void_p, ctypes.c_void_p,  # host int / float params
         ctypes.c_void_p,  # stream
     ]
     return fn
 
 
-def _need(cond: bool, msg: str) -> None:
+def _need(who: str, cond: bool, msg: str) -> None:
     if not cond:
-        raise ValueError(f"fused_sliced_matmul_cuda: {msg}")
+        raise ValueError(f"{who}: {msg}")
+
+
+def _check_weights(who, ws, sw, input_spec, weight_spec, array_size, adc_mode, tensors):
+    """Validate what both kernels take; returns ``(tile, nk, kp, np_)``."""
+    for name, t in tensors:
+        _need(who, t.is_cuda, f"{name} must be a CUDA tensor")
+        _need(who, t.dtype == torch.float32, f"{name} must be float32")
+        _need(who, t.is_contiguous(), f"{name} must be contiguous")
+        _need(who, t.device == ws.device, f"{name} is on another device")
+    bk, bn = array_size
+    _need(who, bk == bn and bk in TILES,
+          f"array_size {tuple(array_size)} is not a square tile of {TILES}")
+    _need(who, ws.dim() == 3 and sw.dim() == 2, "bad ranks")
+    swn, kp, np_ = ws.shape
+    _need(who, kp % bk == 0 and np_ % bk == 0, "Kp/Np not tile multiples")
+    nk, nn = kp // bk, np_ // bk
+    _need(who, tuple(sw.shape) == (nk, nn), f"sw shape {tuple(sw.shape)} != {(nk, nn)}")
+    _need(who, swn == weight_spec.n_slices, "ws slice count != weight_spec")
+    _need(who, input_spec.n_slices in INPUT_SLICES,
+          f"{input_spec.n_slices} input slices; the kernels take {INPUT_SLICES}")
+    _need(who, swn <= MAX_SLICES, f"more than {MAX_SLICES} weight slices")
+    _need(who, adc_mode in ("dynamic", "dynamic_row", "fullscale"), f"bad adc_mode {adc_mode!r}")
+    return bk, nk, kp, np_
+
+
+def _launch(name, lead, m, ws, sw, kp, np_, tile, bm, params, device):
+    out = torch.empty((m, np_), dtype=torch.float32, device=device)
+    if m == 0:
+        return out
+    part = torch.empty((kp // tile, m, np_), dtype=torch.float32, device=device)
+    ints, floats = params
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = _entry(name)(
+            *lead, ws.data_ptr(), sw.data_ptr(), part.data_ptr(), out.data_ptr(),
+            kp, np_, tile, bm, ints.ctypes.data, floats.ctypes.data, stream,
+        )
+    check(rc, name)
+    return out
 
 
 def fused_sliced_matmul_cuda(
@@ -190,39 +255,63 @@ def fused_sliced_matmul_cuda(
     rdac: int,
     radc: int,
     adc_mode: str,
+    bm: int = 128,
 ) -> torch.Tensor:
     """Launch K1 on the card: x (M, K) float32 raw activations, ws
     (Sw, Kp, Np) float32 programmed slices, sw (nk, nn) float32 block
-    scales -> (M, Np) float32.  Raises on anything the kernel does not
-    take (it never falls back to the plain version)."""
-    for name, t in (("x", x), ("ws", ws), ("sw", sw)):
-        _need(t.is_cuda, f"{name} must be a CUDA tensor")
-        _need(t.dtype == torch.float32, f"{name} must be float32")
-        _need(t.is_contiguous(), f"{name} must be contiguous")
-        _need(t.device == x.device, f"{name} is on another device")
-    _need(tuple(array_size) == (TILE, TILE), f"array_size must be {(TILE, TILE)}")
-    _need(x.dim() == 2 and ws.dim() == 3 and sw.dim() == 2, "bad ranks")
+    scales -> (M, Np) float32; ``bm`` rows share a ``dynamic`` range
+    (any ``bm >= 1``: ``bm >= M`` is one range over the whole call).
+    Raises on anything the kernel does not take (it never falls back to
+    the plain version)."""
+    who = "fused_sliced_matmul_cuda"
+    tile, nk, kp, np_ = _check_weights(
+        who, ws, sw, input_spec, weight_spec, array_size, adc_mode,
+        (("x", x), ("ws", ws), ("sw", sw)),
+    )
+    _need(who, bm >= 1, f"bm={bm} must be positive")
+    _need(who, x.dim() == 2, "x must be 2-D")
     m, k = x.shape
-    swn, kp, np_ = ws.shape
-    _need(kp % TILE == 0 and np_ % TILE == 0, "Kp/Np not tile multiples")
-    _need(k <= kp and kp - k < TILE, f"K={k} inconsistent with Kp={kp}")
-    nk, nn = kp // TILE, np_ // TILE
-    _need(tuple(sw.shape) == (nk, nn), f"sw shape {tuple(sw.shape)} != {(nk, nn)}")
-    _need(swn == weight_spec.n_slices, "ws slice count != weight_spec")
-    _need(input_spec.n_slices <= MAX_SLICES and swn <= MAX_SLICES, "too many slices")
-    _need(adc_mode in ("dynamic", "dynamic_row", "fullscale"), f"bad adc_mode {adc_mode!r}")
-    out = torch.empty((m, np_), dtype=torch.float32, device=x.device)
-    if m == 0:
-        return out
-    part = torch.empty((nk, m, np_), dtype=torch.float32, device=x.device)
-    ints, floats = _spec_arrays(input_spec, weight_spec, rdac, radc, adc_mode, TILE)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _entry()(
-            x.data_ptr(), k, m, k, ws.data_ptr(), sw.data_ptr(),
-            part.data_ptr(), out.data_ptr(), kp, np_,
-            ints.ctypes.data, floats.ctypes.data, stream,
-        )
-    check(rc, "fused_sliced_matmul")
-    counter.count += 1
+    _need(who, k <= kp and kp - k < tile, f"K={k} inconsistent with Kp={kp}")
+    params = _spec_arrays(input_spec, weight_spec, rdac, radc, adc_mode, tile)
+    out = _launch("fused_sliced_matmul_launch", (x.data_ptr(), k, m, k), m, ws, sw,
+                  kp, np_, tile, bm, params, x.device)
+    if m:
+        counter.count += 1
+    return out
+
+
+def staged_sliced_matmul_cuda(
+    xs: torch.Tensor,
+    sx: torch.Tensor,
+    ws: torch.Tensor,
+    sw: torch.Tensor,
+    *,
+    input_spec: SliceSpec,
+    weight_spec: SliceSpec,
+    array_size: tuple[int, int],
+    radc: int,
+    adc_mode: str,
+    bm: int = 128,
+) -> torch.Tensor:
+    """Launch K4 on the card: xs (Sx, M, Kp) DAC'd input slices and sx
+    (M, nk) input scales from ``prepare_input``, ws / sw as for K1; M a
+    multiple of ``bm`` (``ops.sliced_matmul`` pads).  Returns (M, Np)
+    float32."""
+    who = "staged_sliced_matmul_cuda"
+    tile, nk, kp, np_ = _check_weights(
+        who, ws, sw, input_spec, weight_spec, array_size, adc_mode,
+        (("xs", xs), ("sx", sx), ("ws", ws), ("sw", sw)),
+    )
+    _need(who, bm in TILES, f"bm={bm} is not one of {TILES}")
+    _need(who, xs.dim() == 3 and sx.dim() == 2, "xs must be 3-D and sx 2-D")
+    sxn, m, kx = xs.shape
+    _need(who, sxn == input_spec.n_slices, "xs slice count != input_spec")
+    _need(who, kx == kp, f"xs has Kp={kx}, the weights {kp}")
+    _need(who, tuple(sx.shape) == (m, nk), f"sx shape {tuple(sx.shape)} != {(m, nk)}")
+    _need(who, m % bm == 0, f"M={m} is not a multiple of bm={bm}")
+    params = _spec_arrays(input_spec, weight_spec, 0, radc, adc_mode, tile)
+    out = _launch("staged_sliced_matmul_launch", (xs.data_ptr(), sx.data_ptr(), m), m,
+                  ws, sw, kp, np_, tile, bm, params, xs.device)
+    if m:
+        staged_counter.count += 1
     return out

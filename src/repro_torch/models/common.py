@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.layers import MemPolicy, layer_key, mem_linear
 from repro_torch.core.quant import div
-from repro_torch.core.rng import fold_in, generator
+from repro_torch.core.prng import fold_in
 
 __all__ = [
     "dense",
@@ -101,7 +101,7 @@ def dense(
     *,
     name: str,
     policy: MemPolicy,
-    rng: int,
+    rng,
     prepared=None,
     kernels: bool = True,
 ) -> torch.Tensor:
@@ -170,13 +170,23 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
-def uniform_init(key: int, shape, scale=None, dtype=torch.float32, device="cuda"):
-    """U(-scale, scale), default scale sqrt(3 / fan_in), from a seeded
-    generator on ``device``."""
+def _generator(key, device) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded with the key's 64 bits
+    (initial weights need not be the reference's bits: tests carry the
+    parameters across)."""
+    hi, lo = (int(v) for v in key)
+    g = torch.Generator(device=device)
+    g.manual_seed(((hi << 32) | lo) & ((1 << 63) - 1))
+    return g
+
+
+def uniform_init(key, shape, scale=None, dtype=torch.float32, device="cuda"):
+    """U(-scale, scale), default scale sqrt(3 / fan_in), from a generator
+    on ``device`` seeded by the prng ``key``."""
     fan_in = shape[0] if len(shape) > 1 else max(shape[0], 1)
     if scale is None:
         scale = math.sqrt(3.0 / fan_in)
-    u = torch.rand(tuple(shape), generator=generator(key, device), dtype=torch.float32,
+    u = torch.rand(tuple(shape), generator=_generator(key, device), dtype=torch.float32,
                    device=device)
     return (u * (2.0 * scale) - scale).to(dtype)
 
@@ -195,7 +205,7 @@ def make_norm_params(d, kind: str, dtype=torch.float32, device="cuda"):
     return p
 
 
-def init_key(key: int, *path: int) -> int:
+def init_key(key, *path: int):
     """Key for one initialised tensor, folded down ``path``."""
     for p in path:
         key = fold_in(key, p)

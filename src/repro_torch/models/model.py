@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.layers import DIGITAL, MemPolicy
-from repro_torch.core.rng import PRNGKey, fold_in
+from repro_torch.core.prng import PRNGKey, fold_in
 
 from .common import (
     dense,
@@ -141,7 +141,7 @@ def decode_step(
     tokens: torch.Tensor,  # (B,) next token ids
     *,
     policy: MemPolicy = DIGITAL,
-    rng: int | None = None,
+    rng=None,
     compute_dtype=torch.bfloat16,
     programmed=None,
     active: torch.Tensor | None = None,
@@ -183,7 +183,7 @@ def prefill_chunk_step(
     final: bool | None = None,
     *,
     policy: MemPolicy = DIGITAL,
-    rng: int | None = None,
+    rng=None,
     compute_dtype=torch.bfloat16,
     programmed=None,
     kernels: bool = True,

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 from repro_torch.core.dpe import program_weight
 from repro_torch.core.layers import MemPolicy, layer_key
-from repro_torch.core.rng import PRNGKey, fold_in
+from repro_torch.core.prng import PRNGKey, fold_in
 
 from .common import layer_slice, stack_layers, tree_leaves
 from .config import ArchConfig
@@ -25,37 +25,38 @@ from .transformer import _attn_only
 __all__ = ["program_params", "programmed_byte_size"]
 
 
-def _prog_dense(p: dict, name: str, rng, policy: MemPolicy, t_prog):
+def _prog_dense(p: dict, name: str, rng, policy: MemPolicy, t_prog, kernels):
     cfg = policy.config_for(name)
     if cfg is None or cfg.mode == "digital":
         return None
-    return program_weight(p["w"], cfg, layer_key(rng, name), t_prog)
+    return program_weight(p["w"], cfg, layer_key(rng, name), t_prog, kernels)
 
 
-def _prog_layer(p: dict, cfg: ArchConfig, layer_idx: int, rng, policy, t_prog):
+def _prog_layer(p: dict, cfg: ArchConfig, layer_idx: int, rng, policy, t_prog, kernels):
     _attn_only(cfg, layer_idx)
     name = "L.attn"
     attn = {
-        pk: _prog_dense(p["attn"][pk], f"{name}.{suffix}", rng, policy, t_prog)
+        pk: _prog_dense(p["attn"][pk], f"{name}.{suffix}", rng, policy, t_prog, kernels)
         for pk, suffix in (("q_proj", "q"), ("k_proj", "k"), ("v_proj", "v"), ("o_proj", "o"))
     }
     mlp = {
-        k: _prog_dense(p["mlp"][k], f"{name}.mlp.{k}", rng, policy, t_prog)
+        k: _prog_dense(p["mlp"][k], f"{name}.mlp.{k}", rng, policy, t_prog, kernels)
         for k in ("wi", "wg", "wo")
     }
     return {"attn": attn, "mlp": mlp}
 
 
 def program_params(
-    params, cfg: ArchConfig, policy: MemPolicy | None, rng: int | None = None,
-    *, t_prog: float | None = 0.0,
+    params, cfg: ArchConfig, policy: MemPolicy | None, rng=None,
+    *, t_prog: float | None = 0.0, kernels: bool = True,
 ):
     """Program every hardware layer of a model once (weight-stationary).
 
     Returns the programmed tree, or ``None`` when the policy has no
     hardware layers.  ``rng`` must equal the base key the decode and
     prefill steps use (serving uses ``PRNGKey(0)``).  ``t_prog`` stamps
-    metadata only (drift is not ported)."""
+    metadata only (drift is not ported).  ``kernels=False`` draws the
+    programming noise with its plain version on a CUDA device."""
     rng = PRNGKey(0) if rng is None else rng
     if policy is None or not policy.enabled:
         return None
@@ -65,11 +66,12 @@ def program_params(
         rng_seg = fold_in(rng, si)
         prog["blocks"][f"seg{si}"] = stack_layers(
             lambda i: _prog_layer(
-                layer_slice(seg_p, i), cfg, tmpl, fold_in(rng_seg, i), policy, t_prog
+                layer_slice(seg_p, i), cfg, tmpl, fold_in(rng_seg, i), policy, t_prog,
+                kernels,
             ),
             steps,
         )
-    prog["lm_head"] = _prog_dense(params["lm_head"], "lm_head", rng, policy, t_prog)
+    prog["lm_head"] = _prog_dense(params["lm_head"], "lm_head", rng, policy, t_prog, kernels)
     return prog
 
 

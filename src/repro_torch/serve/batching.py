@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.layers import MemPolicy
-from repro_torch.core.rng import PRNGKey
+from repro_torch.core.prng import PRNGKey
 from repro_torch.models import program_params
 from repro_torch.models.common import tree_leaves
 from repro_torch.models.model import copy_paged_block, init_paged_cache
@@ -397,7 +397,8 @@ class ServeLoop:
         self.collect_trace = config.collect_trace
         if programmed is None and config.weight_stationary and self.policy.enabled:
             # PRNGKey(0) = the static serving key of the step makers
-            programmed = program_params(params, cfg, self.policy, PRNGKey(0))
+            programmed = program_params(params, cfg, self.policy, PRNGKey(0),
+                                        kernels=config.kernels)
         self.programmed = programmed
         self._chunk = make_chunk_prefill(
             cfg, self.policy, compute_dtype=self.compute_dtype, kernels=config.kernels

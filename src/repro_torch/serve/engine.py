@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.layers import DIGITAL, MemPolicy
-from repro_torch.core.rng import PRNGKey
+from repro_torch.core.prng import PRNGKey
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import decode_step, prefill_chunk_step
 

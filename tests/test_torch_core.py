@@ -12,9 +12,10 @@ holding -22. gives 2.38418565e-07, not 2**-22), while the port computes it exact
 cases therefore run the reference with its ``exp2`` evaluated exactly
 (``_exact_exp2``) and stay bitwise; ``test_reference_exp2_is_inexact``
 pins the difference itself.  The
-port's programming noise comes from ``torch.Generator`` (not JAX's
-threefry), so it is held against its model: mean preserved within 4σ,
-coefficient of variation within 10%.
+port's programming noise draws JAX's threefry bits
+(``repro_torch.core.prng``, held bit for bit against ``jax.random`` by
+``tests/test_torch_prng.py``); it is also held against its model here:
+mean preserved within 4σ, coefficient of variation within 10%.
 """
 import contextlib
 import types
@@ -33,8 +34,13 @@ from repro.core import spec as jspec
 from repro_torch.core import DPEConfig, spec
 from repro_torch.core import device as tdevice
 from repro_torch.core import dpe as tdpe
+from repro_torch.core.prng import PRNGKey
 from repro_torch.core import quant as tquant
 from repro_torch.core import slicing as tslicing
+
+# the suite runs in several worker processes: one intra-op thread each
+# keeps torch from oversubscribing the cores
+torch.set_num_threads(1)
 
 SPECS = ["int4", "int8", "int16", "fp16", "bf16"]
 
@@ -186,25 +192,25 @@ def test_programming_noise_matches_its_model(bits):
     n = 200_000
     for level in (0, 2**bits - 1):
         v = torch.full((n,), float(level))
-        noisy = tdevice.noisy_slice_values(12345 + level, v, bits, hgs, lgs, cv)
+        noisy = tdevice.noisy_slice_values(PRNGKey(12345 + level), v, bits, hgs, lgs, cv)
         g = tdevice.slice_to_conductance(noisy, bits, hgs, lgs).double()
         g0 = lgs + level * (hgs - lgs) / (2.0**bits - 1.0)
         sd = g0 * cv
         assert abs(float(g.mean()) - g0) <= 4 * sd / np.sqrt(n)
         cv_hat = float(g.std() / g.mean())
         assert abs(cv_hat - cv) <= 0.1 * cv, cv_hat
-    a = tdevice.noisy_slice_values(7, torch.ones(16), bits, hgs, lgs, cv)
-    b = tdevice.noisy_slice_values(7, torch.ones(16), bits, hgs, lgs, cv)
-    c = tdevice.noisy_slice_values(8, torch.ones(16), bits, hgs, lgs, cv)
+    a = tdevice.noisy_slice_values(PRNGKey(7), torch.ones(16), bits, hgs, lgs, cv)
+    b = tdevice.noisy_slice_values(PRNGKey(7), torch.ones(16), bits, hgs, lgs, cv)
+    c = tdevice.noisy_slice_values(PRNGKey(8), torch.ones(16), bits, hgs, lgs, cv)
     assert torch.equal(a, b) and not torch.equal(a, c)
 
 
 def test_programming_is_a_pure_function_of_the_key():
     tc = DPEConfig(array_size=(64, 64))
     w = torch.from_numpy(_inputs(7, 70, 50))
-    a = tdpe.prepare_weight(w, tc, key=3)
-    b = tdpe.prepare_weight(w, tc, key=3)
-    c = tdpe.prepare_weight(w, tc, key=4)
+    a = tdpe.prepare_weight(w, tc, key=PRNGKey(3))
+    b = tdpe.prepare_weight(w, tc, key=PRNGKey(3))
+    c = tdpe.prepare_weight(w, tc, key=PRNGKey(4))
     assert torch.equal(a.slices, b.slices) and not torch.equal(a.slices, c.slices)
 
 
@@ -215,7 +221,7 @@ def test_faithful_engine_matches_seed_loop(adc_mode):
     tc = DPEConfig(array_size=(32, 32), adc_mode=adc_mode, backend="xla")
     w = torch.from_numpy(_inputs(8, 70, 50) * 0.1)
     x = torch.from_numpy(_inputs(9, 6, 70))
-    pw = tdpe.prepare_weight(w, tc, key=11)
+    pw = tdpe.prepare_weight(w, tc, key=PRNGKey(11))
     xs, sx = tdpe.prepare_input(x, tc)
     a = tdpe._faithful_matmul(xs, sx, pw.slices, pw.scale, tc)
     b = tdpe._faithful_matmul_loop(xs, sx, pw.slices, pw.scale, tc)

@@ -36,6 +36,10 @@ from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import sliced_matmul as tsm
 from repro_torch.kernels.ref import sliced_matmul_ref
 
+# the suite runs in several worker processes: one intra-op thread each
+# keeps torch from oversubscribing the cores
+torch.set_num_threads(1)
+
 ARRAY = (32, 32)
 BM = 8
 

@@ -41,6 +41,10 @@ from repro_torch.core import dpe as tdpe
 from repro_torch.models import convert, decode_step, init_paged_cache, prefill_chunk_step
 from repro_torch.models import program_params, programmed_byte_size
 
+# the suite runs in several worker processes: one intra-op thread each
+# keeps torch from oversubscribing the cores
+torch.set_num_threads(1)
+
 ARRAY = (32, 32)
 
 

@@ -32,6 +32,10 @@ from repro_torch.core import DPEConfig, MemPolicy, spec
 from repro_torch.models import convert
 from repro_torch.serve import Request, ServeConfig, ServeLoop
 
+# the suite runs in several worker processes: one intra-op thread each
+# keeps torch from oversubscribing the cores
+torch.set_num_threads(1)
+
 ARRAY = (32, 32)
 WORKLOAD = [(11, 4), (5, 3), (7, 4)]  # (prompt_len, max_new_tokens)
 LOOP = dict(slots=2, max_len=32, prefill_chunk=8, block_size=8)
