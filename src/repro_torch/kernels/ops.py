@@ -131,10 +131,11 @@ def paged_chunk_attention(q, pool_k, pool_v, bt_row, start, n_valid, *, window=0
     return _pa.paged_chunk_attention_ref(q, pool_k, pool_v, bt_row, start, n_valid, window=window)
 
 
-def flash_attention(q, k, v, *, causal=True, window=0, bq=128, bk=128, kernels=True):
+def flash_attention(q, k, v, *, causal=True, window=0, bq=64, bk=64, kernels=True):
     """Flash attention (K5): q (BH, Sq, dh), k / v (BH, Skv, dh), float32
     or bfloat16 -> (BH, Sq, dh) in q's dtype.  ``bq`` / ``bk`` are the
-    kernel's query and key tiles (the plain version takes no tiles)."""
+    kernel's query and key tiles, 64 rows each (the plain version takes
+    no tiles)."""
     if _use_kernel(q, kernels):
         return _fa.flash_attention_cuda(
             q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,

@@ -24,17 +24,25 @@ the card, which the served path needs: the faithful engine quantises
 every activation, so a last-bit difference in attention can move a
 quantiser code and grow through 24 layers.
 
-Kernels (``csrc/paged_attention.cu``): one block of 128 threads per
-(query row, query head) walks the block table itself and reads only the
-keys the mask admits, so the trash block and unmapped tail are never
-read; scores sit in shared memory, so the exact two-pass softmax of the
-reference is kept (no online rescaling).  A thread per key computes a
-score, one thread sums the softmax, a thread per dim runs the P·V chain.
-Bound on an H100: the bytes of the live K/V prefix (3.35 TB/s); at
-serving sizes that is well under a microsecond, and these calls are
-bound by the latency of their in-order chains (PERF.md).  Shared memory
-holds ``nb * bs`` scores and key rows, which caps one slot's context at
-about 29k positions; the wrapper raises past that.
+Kernels (``csrc/paged_attention.cu``) walk the block table themselves
+and read only the keys the mask admits, so the trash block and unmapped
+tail are never read; scores sit in shared memory, so the exact two-pass
+softmax of the reference is kept (no online rescaling). K2 runs one
+block per (slot, KV head) for the whole GQA group: K and then V stream
+through shared memory in tiles of whole pool blocks (``cp.async``, a
+ring of four tiles, three in flight), one chain per (head, key) for the
+scores, one per head for the softmax sum, one per (head, dim) for P·V.
+K3 runs one block per (query row, query head): a thread per key computes
+a score, one thread sums the softmax, a thread per dim runs the P·V
+chain. Bound on an H100: the bytes of the live K/V prefix (3.35 TB/s);
+at serving sizes that is well under a microsecond, and these calls are
+bound by the latency of their in-order chains (PERF.md). Shared memory
+holds K2's ``G x nb*bs`` scores (G = H / KV) and K3's ``nb*bs`` scores
+and key rows, which caps one slot's context: for K2 at 5,664 positions
+with qwen2-0.5b's heads (G = 7, head_dim 64, float32, block size 16) and
+38,208 with one query head per KV head (same head_dim, dtype and block
+size); for K3 at about 29,000. The wrappers raise past it
+(:func:`decode_smem_bytes`).
 """
 from __future__ import annotations
 
@@ -210,6 +218,22 @@ def _check_pools(who, q, pool_k, pool_v):
     return need
 
 
+def decode_smem_bytes(g, hd, nb, bs, vec, kv_bytes):
+    """Shared memory of one K2 block (``decode_layout`` in the CUDA
+    source): the group's q, ``g`` rows of scores over ``nb * bs`` keys,
+    ``g`` normalisers, ``nb`` block-table entries and four tiles of whole
+    pool blocks (64 keys, or one block when ``bs`` is larger), in the pool
+    dtype with 16 B of row padding (``vec``) or in float32 with an odd row
+    stride."""
+    def a16(n):
+        return -(-n // 16) * 16
+    lp = -(-(nb * bs) // 32) * 32 + 4
+    stage_keys = (64 // bs if bs < 64 else 1) * bs
+    ld, elt = (hd + 16 // kv_bytes, kv_bytes) if vec else (hd | 1, 4)
+    tiles = a16(a16(4 * g * hd) + 4 * g * lp + 4 * g + 4 * nb)
+    return tiles + 4 * a16(stage_keys * ld * elt)
+
+
 def paged_decode_attention_cuda(q, pool_k, pool_v, block_tables, pos, *, window=0):
     """Launch K2: q (B, H, hd); pools (n_blocks, bs, KV, hd); block_tables
     (B, nb) int32; pos (B,) int32 -> (B, H, hd) in the pool dtype."""
@@ -223,8 +247,11 @@ def paged_decode_attention_cuda(q, pool_k, pool_v, block_tables, pos, *, window=
     need(tuple(pos.shape) == (b,), "pos must be (B,)")
     _, bs, kv, _ = pool_k.shape
     nb = block_tables.shape[1]
-    smem = 4 * (hd + 2 * nb * bs + 6)
-    need(smem <= _SMEM_LIMIT, f"context {nb * bs} too long for the shared-memory scores")
+    need(hd <= 256, f"head_dim {hd} over 256 (one thread per dim in the P·V chains)")
+    vec = hd in (32, 64, 128) and pool_k.data_ptr() % 16 == 0 and pool_v.data_ptr() % 16 == 0
+    smem = decode_smem_bytes(h // kv, hd, nb, bs, vec, pool_k.element_size())
+    need(smem <= _SMEM_LIMIT, f"context {nb * bs} too long: {h // kv} heads' scores and the "
+         f"staged tiles take {smem} B of shared memory, over {_SMEM_LIMIT}")
     out = torch.empty((b, h, hd), dtype=pool_k.dtype, device=q.device)
     if b == 0:
         return out

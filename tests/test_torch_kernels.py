@@ -178,6 +178,32 @@ def test_paged_decode_plain_matches_reference_kernel(dtype, window):
 
 
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("window", [0, 24])
+def test_paged_decode_plain_matches_reference_kernel_served_heads(dtype, window):
+    """The same comparison at qwen2-0.5b's head layout (14 query heads
+    over 2 KV heads, head_dim 64, block size 16), the width K2 serves on
+    the card: pos 0, both sides of a block edge, the last position."""
+    h, kv, hd, bs, nb = 14, 2, 64, 16, 3
+    pos = np.array([0, bs - 1, bs, nb * bs - 1], np.int32)
+    b = len(pos)
+    n_blocks = 1 + b * nb
+    rng = np.random.default_rng(14 + window)
+    pk, pv = (rng.standard_normal((n_blocks, bs, kv, hd)).astype(np.float32) for _ in range(2))
+    bt = (rng.permutation(n_blocks - 1)[: b * nb] + 1).reshape(b, nb).astype(np.int32)
+    for i in range(b):  # unmapped tail entries point at the trash block
+        bt[i, pos[i] // bs + 1:] = 0
+    q = rng.standard_normal((b, h, hd)).astype(np.float32)
+    jk, tk = _as(pk, dtype)
+    jv, tv = _as(pv, dtype)
+    y_j = jpa.paged_decode_attention(
+        jnp.asarray(q), jk, jv, jnp.asarray(bt), jnp.asarray(pos), window=window, interpret=True)
+    y_t = tpa.paged_decode_attention_ref(
+        torch.from_numpy(q), tk, tv, torch.from_numpy(bt), torch.from_numpy(pos), window=window)
+    assert y_t.dtype == tk.dtype and tuple(y_t.shape) == (b, h, hd)
+    assert _rel_max(y_t.float().numpy(), np.asarray(y_j.astype(jnp.float32))) <= 1e-6
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 @pytest.mark.parametrize("start,n_valid,window", [(0, 8, 0), (5, 6, 0), (13, 8, 4), (21, 3, 4)])
 def test_paged_chunk_plain_matches_reference_kernel(dtype, start, n_valid, window):
     c = 8

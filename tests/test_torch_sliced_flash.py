@@ -239,6 +239,16 @@ def test_flash_plain_window_and_bf16():
     _flash_case((1, 2, 2, 128, 128, 32), True, dtype=jnp.bfloat16)
 
 
+def test_flash_cuda_wrapper_refuses_other_tiles():
+    """The kernel's tiles are 64 x 64; the wrapper raises on any other,
+    before it looks at the tensors."""
+    assert tfa.TILES == (64,)
+    q = torch.zeros((2, 8, 32))
+    for bq, bk in ((128, 64), (64, 128), (32, 32)):
+        with pytest.raises(ValueError, match=f"bq={bq} / bk={bk}"):
+            tfa.flash_attention_cuda(q, q, q, bq=bq, bk=bk)
+
+
 def test_flash_cuda_wrapper_refuses_cpu_tensors():
     q = torch.zeros((2, 8, 32))
     with pytest.raises(ValueError, match="CUDA"):
