@@ -200,9 +200,12 @@ def check_k1(timer, qcfg, summary):
                     pairs = dcfg.input_spec.n_slices * dcfg.weight_spec.n_slices
                     flops = 2 * pairs * mm * kp * np_
                     b, by = bound_ms(nbytes, flops)
-                    print(f"K1 time {label:7s} M={mm:2d}: kernel {t:.4f} ms (mean {t_mean:.4f})  "
+                    plan = sm.plan_k1(mm, kp, np_, dcfg.array_size[0], dcfg.input_spec.n_slices,
+                                      dcfg.weight_spec.n_slices, "dynamic_row", 128, dcfg.radc)
+                    print(f"K1 time {label:7s} M={mm:2d}: {plan.ctas} CTAs in {plan.launches} "
+                          f"launch(es), kernel {t:.4f} ms (mean {t_mean:.4f})  "
                           f"plain {tp:.4f} ms  "
-                          f"bound {b:.4f} ms ({by})  x{count} per "
+                          f"bound {b:.4f} ms ({by}), {b / t:.1%} of it  x{count} per "
                           f"{'decode step' if mm == 2 else 'prefill chunk'}")
                     acc["ms"] += count * t
                     acc["mean_ms"] += count * t_mean
@@ -212,8 +215,8 @@ def check_k1(timer, qcfg, summary):
             del pw
         del w
         torch.cuda.empty_cache()
-    for name, acc in (("decode step (M=2, 169 launches)", decode),
-                      ("prefill chunk (M=32, 168 launches, non-final)", prefill)):
+    for name, acc in (("decode step (M=2, 169 calls)", decode),
+                      ("prefill chunk (M=32, 168 calls, non-final)", prefill)):
         b, by = bound_ms(acc["bytes"], acc["flops"])
         print(f"K1 {name}: kernel {acc['ms']:.3f} ms (sum of medians; sum of means "
               f"{acc['mean_ms']:.3f} ms)  plain {acc['plain_ms']:.3f} ms  "
@@ -812,8 +815,8 @@ def run_apps(card):
             raise AssertionError(f"app {name}: K1 never launched")
 
 
-KERNEL_OF = (("sliced_matmul_kernel", "K1"), ("sum_k_blocks", "K1"),
-             ("paged_decode_kernel", "K2"), ("paged_chunk_kernel", "K3"))
+KERNEL_OF = (("sliced_matmul_kernel", "K1"), ("paged_decode_kernel", "K2"),
+             ("paged_chunk_kernel", "K3"))
 
 
 def device_busy(loop, reqs, rep, card):
@@ -826,10 +829,14 @@ def device_busy(loop, reqs, rep, card):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import ops
+
     wall_ms = rep.wall_s * 1e3
+    ops.reset_counters()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         loop.run(reqs)
         torch.cuda.synchronize()
+    k1_calls = ops.COUNTERS["fused_sliced_matmul"].count
     groups: dict = {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
@@ -849,6 +856,8 @@ def device_busy(loop, reqs, rep, card):
     for g in ("K1", "K2", "K3"):
         ms, n = groups.get(g, (0.0, 0))
         print(f"  {g}: {ms:.2f} ms device in {n} kernel launches")
+    n = groups.get("K1", (0.0, 0))[1]
+    print(f"  K1: {k1_calls} calls, {n / max(k1_calls, 1):.2f} kernel launches per call")
     print(f"  other device work: {sum(o[0] for o in other):.2f} ms in "
           f"{sum(o[1] for o in other)} launches; largest:")
     for ms, n, g in other[:6]:

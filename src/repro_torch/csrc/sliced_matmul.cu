@@ -1,19 +1,12 @@
-// C entries of K1 (fused) and K4 (staged) and the K-block sum.  The
-// kernels are in sliced_matmul.cuh; see there for the design.
+// C entries of K1 (fused) and K4 (staged).  The kernel is in
+// sliced_matmul.cuh (one source per crossbar tile size); see there for
+// the design.  The launch geometry comes from the caller
+// (kernels/sliced_matmul.py::plan_k1) and is checked, not chosen, here.
 #include "sliced_matmul.cuh"
 
 namespace {
 
 using dpe::MAX_S;
-
-__global__ void sum_k_blocks(const float* __restrict__ part, float* __restrict__ out,
-                             int nk, size_t mn) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= mn) return;
-  float s = 0.f;
-  for (int kb = 0; kb < nk; ++kb) s = __fadd_rn(s, part[(size_t)kb * mn + idx]);
-  out[idx] = s;
-}
 
 dpe::Params unpack(const int* ip, const float* fp) {
   dpe::Params P;
@@ -34,22 +27,22 @@ dpe::Params unpack(const int* ip, const float* fp) {
   return P;
 }
 
-int run(const dpe::Args& A, bool staged, int tile, const dpe::Params& P, float* out,
-        cudaStream_t stream) {
+dpe::Plan unpack_plan(const int* lp) {
+  return dpe::Plan{lp[0], lp[1], lp[2], lp[3], lp[4], lp[5], lp[6],  lp[7],
+                   lp[8], lp[9], lp[10], lp[11], lp[12], lp[13], lp[14]};
+}
+
+int run(const dpe::Args& A, bool staged, int tile, const int* ip, const float* fp,
+        const int* lp, cudaStream_t stream) {
+  const dpe::Params P = unpack(ip, fp);
   if (P.sw_n < 1 || P.sw_n > MAX_S) return (int)cudaErrorInvalidValue;
-  cudaError_t e;
+  const dpe::Plan L = unpack_plan(lp);
   switch (tile) {
-    case 32: e = dpe::launch_tile32(A, staged, P, stream); break;
-    case 64: e = dpe::launch_tile64(A, staged, P, stream); break;
-    case 128: e = dpe::launch_tile128(A, staged, P, stream); break;
+    case 32: return dpe::launch_tile32(A, staged, L, P, stream);
+    case 64: return dpe::launch_tile64(A, staged, L, P, stream);
+    case 128: return dpe::launch_tile128(A, staged, L, P, stream);
     default: return (int)cudaErrorInvalidValue;
   }
-  if (e != cudaSuccess) return (int)e;
-  const size_t mn = (size_t)A.M * A.Np;
-  const int threads = 256;
-  sum_k_blocks<<<(unsigned)((mn + threads - 1) / threads), threads, 0, stream>>>(
-      A.part, out, A.Kp / tile, mn);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -57,21 +50,21 @@ int run(const dpe::Args& A, bool staged, int tile, const dpe::Params& P, float* 
 // K1: raw x (M, K), leading dimension ldx.
 extern "C" int fused_sliced_matmul_launch(const float* x, int ldx, int M, int K,
                                           const float* ws, const float* sw, float* part,
-                                          float* out, int Kp, int Np, int tile, int bm,
-                                          const int* ip, const float* fp,
-                                          cudaStream_t stream) {
-  dpe::Args A{x, ldx, K, nullptr, nullptr, ws, sw, part, M, Kp, Np, bm};
-  return run(A, false, tile, unpack(ip, fp), out, stream);
+                                          float* out, int* tickets, float* scratch, int Kp,
+                                          int Np, int tile, const int* ip, const float* fp,
+                                          const int* lp, cudaStream_t stream) {
+  dpe::Args A{x, ldx, K, nullptr, nullptr, ws, sw, part, out, tickets, scratch, M, Kp, Np};
+  return run(A, false, tile, ip, fp, lp, stream);
 }
 
 // K4: pre-sliced xs (Sx, M, Kp) and scales sx (M, nk); M a multiple of bm.
 extern "C" int staged_sliced_matmul_launch(const float* xs, const float* sx, int M,
                                            const float* ws, const float* sw, float* part,
-                                           float* out, int Kp, int Np, int tile, int bm,
-                                           const int* ip, const float* fp,
-                                           cudaStream_t stream) {
-  dpe::Args A{nullptr, 0, 0, xs, sx, ws, sw, part, M, Kp, Np, bm};
-  return run(A, true, tile, unpack(ip, fp), out, stream);
+                                           float* out, int* tickets, float* scratch, int Kp,
+                                           int Np, int tile, const int* ip, const float* fp,
+                                           const int* lp, cudaStream_t stream) {
+  dpe::Args A{nullptr, 0, 0, xs, sx, ws, sw, part, out, tickets, scratch, M, Kp, Np};
+  return run(A, true, tile, ip, fp, lp, stream);
 }
 
 extern "C" const char* cuda_error_string(int code) {

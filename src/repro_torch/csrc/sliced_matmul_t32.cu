@@ -3,7 +3,7 @@
 #include "sliced_matmul.cuh"
 
 namespace dpe {
-cudaError_t launch_tile32(const Args& A, bool staged, const Params& P, cudaStream_t s) {
-  return detail::launch_tile<32>(A, staged, P, s);
+int launch_tile32(const Args& A, bool staged, const Plan& L, const Params& P, cudaStream_t s) {
+  return detail::launch_tile<32>(A, staged, L, P, s);
 }
 }  // namespace dpe

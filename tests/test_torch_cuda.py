@@ -236,3 +236,104 @@ def test_fused_kernel_whole_call_range(card):
     y = dpe_matmul(x, w, cfg, PRNGKey(11))
     assert sm.counter.count == before + 1
     assert torch.equal(y, dpe_matmul(x, w, cfg, PRNGKey(11), kernels=False))
+
+
+# --- K1 / K4's cluster decomposition (kernels/sliced_matmul.py::plan_k1) ---
+
+def _k1_both(x, pw, **kw):
+    y = sm.fused_sliced_matmul_cuda(x, pw.slices, pw.scale, **kw)
+    yp = sm.fused_sliced_matmul_ref(x, pw.slices, pw.scale, **kw)
+    torch.cuda.synchronize()
+    return y, yp
+
+
+@pytest.mark.parametrize("n", [128, 151936 // 8])  # k/v's one n-block; a wide vocab slab
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 31, 32, 33, 150])
+def test_fused_kernel_served_rows_bitwise(card, n, m):
+    """The served configuration (int8 x int8, 128x128, ``dynamic_row``,
+    programming noise) at K = 896: one row unit up to 32 rows, a loop of
+    units past it, a ragged last unit."""
+    cfg = DPEConfig(array_size=(128, 128), adc_mode="dynamic_row")
+    pw, g = _programmed(card, cfg, 896, n, m)
+    x = torch.randn((m, 896), generator=g, device=card)
+    y, yp = _k1_both(x, pw, input_spec=INT8, weight_spec=INT8, array_size=(128, 128), rdac=256,
+                     radc=1024, adc_mode="dynamic_row")
+    assert torch.equal(y, yp), float((y - yp).abs().max())
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("m,bm", [(3, 128), (33, 16), (40, 32), (64, 64), (150, 64), (150, 150),
+                                  (150, 256), (130, 128)])
+def test_fused_kernel_dynamic_tiles_bitwise(card, tile, m, bm):
+    """``dynamic`` over bm-row tiles: bm < M and bm >= M, tiles padded
+    past M (their zero rows count toward the range), one-pass tiles and
+    tiles taking a range pass and a quantise pass."""
+    cfg = DPEConfig(array_size=(tile, tile), adc_mode="dynamic")
+    pw, g = _programmed(card, cfg, 300, 200, m + bm)
+    x = torch.randn((m, 300), generator=g, device=card)
+    y, yp = _k1_both(x, pw, input_spec=INT8, weight_spec=INT8, array_size=(tile, tile), rdac=256,
+                     radc=1024, adc_mode="dynamic", bm=bm)
+    assert torch.equal(y, yp), float((y - yp).abs().max())
+
+
+@pytest.mark.parametrize("adc_mode", ["dynamic", "dynamic_row", "fullscale"])
+@pytest.mark.parametrize("m", [1, 2, 32, 70])
+def test_fused_kernel_fp32_cluster_bitwise(card, adc_mode, m):
+    """fp32 x fp32: 8 x 8 slice pairs, a cluster of 8 CTAs (one per weight
+    slice, no column split), 4 rows a thread."""
+    cfg = DPEConfig(input_spec=spec("fp32"), weight_spec=spec("fp32"), array_size=(128, 128),
+                    adc_mode=adc_mode)
+    pw, g = _programmed(card, cfg, 300, 260, m)
+    x = torch.randn((m, 300), generator=g, device=card)
+    y, yp = _k1_both(x, pw, input_spec=spec("fp32"), weight_spec=spec("fp32"),
+                     array_size=(128, 128), rdac=256, radc=1024, adc_mode=adc_mode)
+    assert torch.equal(y, yp), float((y - yp).abs().max())
+
+
+@pytest.mark.parametrize("bm", [32, 64, 128])
+def test_staged_kernel_equals_fused_bitwise(card, bm):
+    """K4 and K1 run one device code: at equal bm they agree bit for bit."""
+    cfg = DPEConfig(adc_mode="dynamic")
+    pw, g = _programmed(card, cfg, 1024, 256, bm + 1)
+    x = torch.randn((128, 1024), generator=g, device=card)
+    xs, sx = prepare_input(x, cfg)
+    kw = dict(input_spec=INT8, weight_spec=INT8, array_size=(64, 64), radc=1024,
+              adc_mode="dynamic", bm=bm)
+    y4 = ops.sliced_matmul(xs, sx, pw.slices, pw.scale, **kw)
+    y1 = ops.fused_sliced_matmul(x, pw.slices, pw.scale, rdac=256, **kw)
+    yp = sliced_matmul_ref(xs, sx, pw.slices, pw.scale, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(y4, yp), float((y4 - yp).abs().max())
+    assert torch.equal(y4, y1), float((y4 - y1).abs().max())
+
+
+@pytest.mark.parametrize("m", [2, 32])
+def test_fused_kernel_one_launch_per_call(card, m):
+    """The served call (``dynamic_row``, 7 K-blocks) is one kernel launch:
+    the counter counts the call, the profiler sees one device kernel, and
+    the K-block sum happens inside it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = DPEConfig(array_size=(128, 128), adc_mode="dynamic_row")
+    pw, g = _programmed(card, cfg, 896, 896, m)
+    x = torch.randn((m, 896), generator=g, device=card)
+    kw = dict(input_spec=INT8, weight_spec=INT8, array_size=(128, 128), rdac=256, radc=1024,
+              adc_mode="dynamic_row")
+    assert sm.plan_k1(m, 896, 896, 128, 4, 4, "dynamic_row", 128).launches == 1
+    sm.fused_sliced_matmul_cuda(x, pw.slices, pw.scale, **kw)  # build, first-call set-up
+    torch.cuda.synchronize()
+    before = sm.counter.count
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            y = sm.fused_sliced_matmul_cuda(x, pw.slices, pw.scale, **kw)
+        torch.cuda.synchronize()
+    assert sm.counter.count == before + 3
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA and "sliced_matmul" in e.name]
+    assert len(kernels) == 3, kernels
+    others = [e.name for e in prof.events()
+              if e.device_type == DeviceType.CUDA and "sliced_matmul" not in e.name
+              and not getattr(e, "is_user_annotation", False)]
+    assert not others, others
+    assert torch.equal(y, sm.fused_sliced_matmul_ref(x, pw.slices, pw.scale, **kw))
