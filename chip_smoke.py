@@ -18,7 +18,12 @@ Phases (any failure exits non-zero; nothing is caught):
    flex16_5, int8 x int4 and bf16 presets, and ``dpe_matmul`` with the
    paper's default ``DPEConfig()``; K2 / K3 bit for bit at qwen2-0.5b's
    head layout, in float32 and bf16, with and without a window, with
-   SDPA's time over the gathered view beside them; K4, the staged engine
+   SDPA's time over the gathered view beside them: K3 for 32-row chunks
+   at start 0 and 37, at 4,064 (a 4K prompt's last chunk) and at 32,736
+   (a 32K prompt's last chunk, in a 2,048-block table), K2 for 4 slots
+   in a 16-block and a 2,048-block table at short positions and at pos
+   6,143 and 32,767 (batched == solo), each timed in float32 beside the
+   bound and the timer floor; K4, the staged engine
    (``prepare_input`` then ``ops.sliced_matmul``) at the paper's Table 2
    shape, bit-equal to its plain version, within 8 ulp of K1 and, at
    bm 64, at the reference's recorded error (``BENCH_dpe.json``); K5 at
@@ -26,7 +31,9 @@ Phases (any failure exits non-zero; nothing is caught):
    (float32) and rel-Fro 2e-2 (bf16), with SDPA's time beside it in both
    dtypes and its bound at the TF32 tensor-core rate of its 3xTF32
    products; K6, the programming noise, bit for bit on a slice plane of
-   every served weight shape;
+   every served weight shape, its bound from the operations a cell
+   needs, counted by pipe at the card's issue rates (``K6_CELL``), with
+   the compiled loop's SASS count beside it (``tools/k6_sass.py``);
 4. serve qwen2-0.5b at full width (24 layers, random weights from a
    seed) through ``ServeLoop`` with the ``mem_faithful`` policy
    (``dynamic_row`` ADC), programmed on the card (K6 must have launched
@@ -37,7 +44,12 @@ Phases (any failure exits non-zero; nothing is caught):
    (``ServeConfig(kernels=False)``), which holds K2 and the decode-width
    K1 at the served shapes; then the same requests run once more under
    ``torch.profiler`` to split the card's busy time by kernel and give
-   its idle share against the first run's wall time;
+   its idle share against the first run's wall time; then the same
+   requests through a ``ServeLoop`` with ``max_len`` 32,768
+   (qwen2-0.5b's context; block tables of 2,048 entries), whose tokens
+   and logits must equal the ``max_len`` 128 run's bit for bit, and one
+   request of 6,016 prompt tokens and 8 new ones (``max_len`` 8,192)
+   served with prefill chunks of 32 and of 64, whose tokens must agree;
 5. run the seven paper applications (``repro_torch.apps``) at their
    reference defaults (the default ``DPEConfig`` backend ``xla``: the
    ``dynamic`` ADC range spans a whole call, K-means' 150 rows
@@ -234,7 +246,13 @@ def _pools(g, n_blocks, bs, kv, hd, dtype):
     return mk(), mk()
 
 
-def check_k2_k3(timer, qcfg, summary, card):
+def _gathered(pa, pool, bt, grp):
+    """SDPA's K or V: the logical view of the table(s), one copy per query head."""
+    bt2 = bt if bt.dim() == 2 else bt[None]
+    return pa._paged_gather(pool, bt2).permute(0, 2, 1, 3).repeat_interleave(grp, dim=1)
+
+
+def check_k2_k3(timer, qcfg, summary, card, floor):
     import torch.nn.functional as F
 
     from repro_torch.kernels import paged_attention as pa
@@ -269,9 +287,7 @@ def check_k2_k3(timer, qcfg, summary, card):
             n_keys = int((pos + 1).sum())
             nbytes = el * (2 * n_keys * kv * hd + 2 * q.numel()) + 4 * (bt.numel() + b)
             flops = 4 * h * hd * n_keys
-            grp = h // kv
-            kg = pa._paged_gather(pk, bt).permute(0, 2, 1, 3).repeat_interleave(grp, dim=1)
-            vg = pa._paged_gather(pv, bt).permute(0, 2, 1, 3).repeat_interleave(grp, dim=1)
+            kg, vg = _gathered(pa, pk, bt, h // kv), _gathered(pa, pv, bt, h // kv)
             mask = (torch.arange(nb * bs, device="cuda")[None, :] <= pos[:, None].long())
             timing["paged_decode_attention"] = dict(
                 ms=timer(lambda: pa.paged_decode_attention_cuda(q, pk, pv, bt, pos), iters=20),
@@ -301,9 +317,7 @@ def check_k2_k3(timer, qcfg, summary, card):
             n_keys = sum(start + i + 1 for i in range(c))
             nbytes = 4 * (2 * (start + c) * kv * hd + 2 * qc.numel() + nb)
             flops = 4 * h * hd * n_keys
-            grp = h // kv
-            kg = pa._paged_gather(pk, bt_row[None]).permute(0, 2, 1, 3).repeat_interleave(grp, dim=1)
-            vg = pa._paged_gather(pv, bt_row[None]).permute(0, 2, 1, 3).repeat_interleave(grp, dim=1)
+            kg, vg = _gathered(pa, pk, bt_row, h // kv), _gathered(pa, pv, bt_row, h // kv)
             qi = start + torch.arange(c, device="cuda")[:, None]
             cmask = torch.arange(nb * bs, device="cuda")[None, :] <= qi
             timing["paged_chunk_attention"] = dict(
@@ -331,9 +345,129 @@ def check_k2_k3(timer, qcfg, summary, card):
         b, by = t["bound"]
         print(f"{name}: kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  "
               f"SDPA over the gathered view {t['library_ms']:.4f} ms  bound {b:.5f} ms ({by})  "
-              f"[{card}]")
+              f"timer floor {floor:.4f} ms  [{card}]")
         summary[name] = dict(max_abs_err=worst[name], ms=t["ms"], plain_ms=t["plain_ms"],
                              bound_ms=b, bound_by=by, library_ms=t["library_ms"])
+
+
+def check_k2_k3_long(timer, qcfg, summary, card, floor):
+    """K3 and K2 past the served shapes, at qwen2-0.5b's heads: K3's last
+    chunk of a 4K prompt (start 4,064) in a 256-block table and of a 32K
+    prompt (start 32,736) in a 2,048-block table; K2 for 4 slots in a
+    2,048-block table at short positions (every score kept, as at 16
+    blocks) and at pos 6,143 and 32,767 (scores recomputed per pass),
+    batched == solo; f32 and bf16, window 0 and 24, bit for bit.  Times in
+    f32 beside the plain version, SDPA over the gathered view, the bound
+    and the timer floor."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import paged_attention as pa
+
+    h, kv, hd = qcfg.n_heads, qcfg.n_kv_heads, qcfg.head_dim
+    grp, bs, c = h // kv, 16, 32
+    g = torch.Generator(device="cuda").manual_seed(15)
+    worst = summary["paged_chunk_attention"]
+    worst2 = summary["paged_decode_attention"]
+    t0 = time.monotonic()
+    for nb, starts in ((256, (4064,)), (2048, (32736,))):
+        for dtype in (torch.float32, torch.bfloat16):
+            pk, pv = _pools(g, nb + 1, bs, kv, hd, dtype)
+            bt_row = (torch.randperm(nb, generator=g, device="cuda") + 1).to(torch.int32)
+            qc = torch.randn((1, c, h, hd), generator=g, device="cuda").to(dtype)
+            for start in starts:
+                for window in (0, 24):
+                    y = pa.paged_chunk_attention_cuda(qc, pk, pv, bt_row, start, c, window=window)
+                    yp = pa.paged_chunk_attention_ref(qc, pk, pv, bt_row, start, c, window=window)
+                    torch.cuda.synchronize()
+                    err = float((y.float() - yp.float()).abs().max())
+                    worst["max_abs_err"] = max(worst["max_abs_err"], err)
+                    print(f"K3 C={c} start={start} table={nb} blocks {str(dtype):14s} "
+                          f"window={window:2d} max abs err={err:.2e} bit-equal={torch.equal(y, yp)}")
+                    if not torch.equal(y, yp):
+                        raise AssertionError(f"K3 start={start} {dtype} window={window}: {err}")
+            if dtype == torch.float32:
+                for start in starts:
+                    _time_k3(timer, pa, F, pk, pv, bt_row, qc, start, grp, card, floor)
+            del pk, pv
+            torch.cuda.empty_cache()
+    # K2: 4 slots in a 2,048-block table
+    nb, b = 2048, 4
+    for dtype in (torch.float32, torch.bfloat16):
+        pk, pv = _pools(g, nb + 1, bs, kv, hd, dtype)
+        q = torch.randn((b, h, hd), generator=g, device="cuda")
+        for label, plist in (("short", None), ("long", [6143, 32767, 6143 - 77, 32767 - 1000])):
+            pos = (torch.randint(0, 256, (b,), generator=g, device="cuda") if plist is None
+                   else torch.tensor(plist, device="cuda")).to(torch.int32)
+            bt = torch.stack([torch.randperm(nb, generator=g, device="cuda") + 1
+                              for _ in range(b)]).to(torch.int32)
+            for i in range(b):  # unmapped tail entries point at the trash block
+                bt[i, int(pos[i]) // bs + 1:] = 0
+            bt = bt.contiguous()
+            for window in (0, 24):
+                y = pa.paged_decode_attention_cuda(q, pk, pv, bt, pos, window=window)
+                yp = pa.paged_decode_attention_ref(q, pk, pv, bt, pos, window=window)
+                solo = torch.cat([pa.paged_decode_attention_cuda(
+                    q[i:i + 1].contiguous(), pk, pv, bt[i:i + 1].contiguous(),
+                    pos[i:i + 1].contiguous(), window=window) for i in range(b)])
+                torch.cuda.synchronize()
+                err = float((y.float() - yp.float()).abs().max())
+                worst2["max_abs_err"] = max(worst2["max_abs_err"], err)
+                print(f"K2 B={b} table={nb} blocks {str(dtype):14s} window={window:2d} "
+                      f"pos={pos.tolist()} max abs err={err:.2e} bit-equal={torch.equal(y, yp)} "
+                      f"batched == solo: {torch.equal(y, solo)}")
+                if not (torch.equal(y, yp) and torch.equal(y, solo)):
+                    raise AssertionError(f"K2 {label} {dtype} window={window}: {err}")
+        if dtype == torch.float32:
+            _time_k2_wide(timer, pa, F, pk, pv, q, grp, card, floor)
+        del pk, pv
+        torch.cuda.empty_cache()
+    print(f"long-context K2 / K3 checks: {time.monotonic() - t0:.1f} s")
+
+
+def _time_k3(timer, pa, F, pk, pv, bt_row, qc, start, grp, card, floor):
+    c, h, hd, kv = qc.shape[1], qc.shape[2], qc.shape[3], pk.shape[2]
+    n_keys = sum(start + i + 1 for i in range(c))
+    nbytes = 4 * (2 * (start + c) * kv * hd + 2 * qc.numel() + bt_row.numel())
+    b, by = bound_ms(nbytes, 4 * h * hd * n_keys)
+    kg, vg = _gathered(pa, pk, bt_row, grp), _gathered(pa, pv, bt_row, grp)
+    qi = start + torch.arange(c, device="cuda")[:, None]
+    cmask = torch.arange(kg.shape[2], device="cuda")[None, :] <= qi
+    t = timer(lambda: pa.paged_chunk_attention_cuda(qc, pk, pv, bt_row, start, c), iters=20)
+    tp = timer(lambda: pa.paged_chunk_attention_ref(qc, pk, pv, bt_row, start, c),
+               iters=2 if start > 1000 else 5)
+    tl = timer(lambda: F.scaled_dot_product_attention(qc.permute(0, 2, 1, 3), kg, vg,
+                                                      attn_mask=cmask), iters=20)
+    print(f"K3 time C={c} start={start} table={bt_row.numel()} blocks f32: kernel {t:.4f} ms  "
+          f"plain {tp:.4f} ms  SDPA over the gathered view {tl:.4f} ms  bound {b:.5f} ms ({by})  "
+          f"timer floor {floor:.4f} ms  [{card}]")
+
+
+def _time_k2_wide(timer, pa, F, pk, pv, q, grp, card, floor):
+    """K2 at the served shape (4 slots, random positions below 256) in a
+    2,048-block table, and with every slot at pos 32,767."""
+    nb, bs, b = 2048, 16, q.shape[0]
+    g = torch.Generator(device="cuda").manual_seed(16)
+    for label, pos in (("served positions", torch.randint(0, 256, (b,), generator=g,
+                                                          device="cuda")),
+                       ("pos 32767", torch.full((b,), 32767, device="cuda"))):
+        pos = pos.to(torch.int32)
+        bt = torch.stack([torch.randperm(nb, generator=g, device="cuda") + 1
+                          for _ in range(b)]).to(torch.int32)
+        for i in range(b):
+            bt[i, int(pos[i]) // bs + 1:] = 0
+        bt = bt.contiguous()
+        n_keys = int((pos + 1).sum())
+        nbytes = 4 * (2 * n_keys * pk.shape[2] * pk.shape[3] + 2 * q.numel()) + 4 * (bt.numel() + b)
+        bnd, by = bound_ms(nbytes, 4 * q.shape[1] * q.shape[2] * n_keys)
+        t = timer(lambda: pa.paged_decode_attention_cuda(q, pk, pv, bt, pos), iters=20)
+        kg, vg = _gathered(pa, pk, bt, grp), _gathered(pa, pv, bt, grp)
+        mask = torch.arange(nb * bs, device="cuda")[None, :] <= pos[:, None].long()
+        tl = timer(lambda: F.scaled_dot_product_attention(q[:, :, None], kg, vg,
+                                                          attn_mask=mask[:, None, None]), iters=20)
+        print(f"K2 time B={b} table={nb} blocks, {label} {pos.tolist()}: kernel {t:.4f} ms  "
+              f"SDPA over the gathered view {tl:.4f} ms  bound {bnd:.5f} ms ({by})  "
+              f"timer floor {floor:.4f} ms  [{card}]")
+        del kg, vg
 
 
 # ---------------------------------------------------------------------------
@@ -423,6 +557,69 @@ def serve(qcfg, card, counters):
             raise AssertionError(f"request {a.rid}: tokens {a.tokens} vs plain {b.tokens}")
     print(f"plain-version run: {prep.tok_per_s:.2f} tok/s, wall {prep.wall_s:.2f} s  [{card}]")
     device_busy(loop, reqs, rep, card)
+    serve_long(params, qcfg, sc, loop, reqs, rep, card)
+
+
+def serve_long(params, qcfg, sc, loop, reqs, rep, card):
+    """qwen2-0.5b's whole context (32,768 tokens, arXiv:2407.10671): the
+    served requests once more through a ``ServeLoop`` with ``max_len``
+    32,768 (block tables of 2,048 entries) on the same programmed state,
+    whose tokens and logits must equal the ``max_len`` 128 run's bit for
+    bit; then one request of 6,016 prompt tokens and 8 new ones at
+    ``max_len`` 8,192, so that every decode step's K2 reads more than the
+    5,664 positions the old K2 could hold, served with prefill chunks of
+    32 and of 64 (kernels only): equal tokens."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import Request, ServeLoop
+
+    wide = ServeLoop(params, qcfg, sc.replace(max_len=32768), programmed=loop.programmed)
+    ops.reset_counters()
+    wrep = wide.run(reqs)
+    torch.cuda.synchronize()
+    for a, b in zip(rep.results, wrep.results):
+        same = (a.tokens == b.tokens and len(a.logits) == len(b.logits)
+                and all(np.array_equal(x, y) for x, y in zip(a.logits, b.logits)))
+        if not same:
+            raise AssertionError(f"request {a.rid}: max_len 32768 gives {b.tokens}, "
+                                 f"max_len 128 {a.tokens}, or other logits")
+    print(f"max_len 32768 (tables of {wide.blocks_per_slot} blocks): tokens and all "
+          f"{sum(len(r.logits) for r in wrep.results)} logit rows bit-equal to max_len 128; "
+          f"launches {ops.COUNTERS['paged_decode_attention'].count} K2, "
+          f"{ops.COUNTERS['paged_chunk_attention'].count} K3; ITL mean "
+          f"{wrep.itl_percentiles()['mean'] * 1e3:.1f} ms (max_len 128: "
+          f"{rep.itl_percentiles()['mean'] * 1e3:.1f} ms)  [{card}]")
+    del wide
+    torch.cuda.empty_cache()
+
+    prompt = np.random.default_rng(6016).integers(0, qcfg.vocab, 6016).astype(np.int32)
+    tokens = {}
+    for chunk in (32, 64):
+        lp = ServeLoop(params, qcfg, sc.replace(slots=1, max_len=8192, prefill_chunk=chunk),
+                       programmed=loop.programmed)
+        ops.reset_counters()
+        lrep = lp.run([Request(0, prompt, 8)])
+        torch.cuda.synchronize()
+        r = lrep.results[0]
+        k2 = ops.COUNTERS["paged_decode_attention"].count
+        k3 = ops.COUNTERS["paged_chunk_attention"].count
+        if r.finish_reason != "length" or len(r.tokens) != 8:
+            raise AssertionError(f"long request, chunk {chunk}: {r.finish_reason} {r.tokens}")
+        if not all(np.isfinite(row).all() for row in r.logits):
+            raise AssertionError(f"long request, chunk {chunk}: non-finite logits")
+        if (lrep.decode_steps != 7 or k2 != qcfg.n_layers * lrep.decode_steps
+                or k3 != qcfg.n_layers * lrep.prefill_chunks_run):
+            raise AssertionError(f"long request, chunk {chunk}: {lrep.decode_steps} decode "
+                                 f"steps, {k2} K2 and {k3} K3 launches")
+        tokens[chunk] = r.tokens
+        print(f"long request (6016 prompt tokens, 8 new, max_len 8192), prefill chunk {chunk}: "
+              f"{lrep.prefill_chunks_run} chunks, {lrep.decode_steps} decode steps at positions "
+              f"6016-6022 ({k2} K2, {k3} K3 launches), TTFT {r.ttft_s * 1e3:.0f} ms, ITL mean "
+              f"{lrep.itl_percentiles()['mean'] * 1e3:.1f} ms, wall {lrep.wall_s:.2f} s; "
+              f"tokens {r.tokens}  [{card}]")
+        del lp
+        torch.cuda.empty_cache()
+    if tokens[32] != tokens[64]:
+        raise AssertionError(f"long request: chunk 32 gives {tokens[32]}, chunk 64 {tokens[64]}")
 
 
 # ---------------------------------------------------------------------------
@@ -695,17 +892,62 @@ def check_k5(timer, qcfg, summary, card):
 # phase 3e: K6, programming noise
 # ---------------------------------------------------------------------------
 
-# operations per cell, counted from csrc/program_noise.cu (a fused
-# multiply-add counts two): threefry2x32 about 80 32-bit integer
-# operations; uniform 6, erf_inv with its log1p 56, the conductance map
-# 3, log 32, exp 30, the way back 3; every one at the float32 rate
-OPS_PER_NOISE_CELL = 80 + 6 + 56 + 3 + 32 + 30 + 3
+# K6's work per cell, counted from csrc/program_noise.cu as the sm_90
+# instructions each operation needs: one per add, multiply, fused
+# multiply-add, compare, min / max, select, shift, rotate (a funnel
+# shift) or logic op; an IEEE division a reciprocal, five FFMA and a
+# check; a square root a reciprocal root and four FFMA.  Key arithmetic
+# that is the same for every cell, loop and address arithmetic and
+# branches are not counted.  Per stage (FP32 pipe: FFMA / FADD / FMUL;
+# ALU: integer, logic, shifts, float compares, min / max, selects; XU:
+# MUFU, conversions, the division's check; load / store), with the
+# branch stages weighted by the share of this run's cells that take them.
+K6_CELL = {
+    "threefry2x32": (0, 73, 0, 0),  # counter words in 2, 20 x (add, rotate, xor), 10 key adds, xor
+    "uniform": (2, 3, 0, 0),  # shift, or, 1 - f, fma, max
+    "erf_inv, w < 5": (11, 2, 0, 0),  # -u*u, 2 compares, w - 2.5, 8 fma, * u
+    "log1p, |y| < 0.4146": (22, 0, 2, 0),  # 2 x 6 fma, division, 5
+    "log1p, else": (20, 6, 1, 0),  # y + 1, then log
+    "erf_inv, w >= 5": (4, 0, 1, 0),  # the square root, beyond the w < 5 side
+    "g, log, mu": (22, 7, 1, 1),  # load, v * dg + lgs, max, log (19 FP32, 6 ALU, I2F), - s2/2
+    "exp, out": (21, 6, 4, 1),  # sqrt(2) * e, sigma * z + mu, exp (12 FP32, 6 ALU, FRND, F2I),
+    #                              gp - lgs, division, store
+}
+# thread-instructions per SM per cycle on sm_90 (CUDA C++ Programming
+# Guide, arithmetic instruction throughput, compute capability 9.0)
+K6_PIPE_RATE = (128, 64, 16, 32)
+ISSUE_PER_SM = 128  # four schedulers, one warp-instruction each a cycle
+
+
+def k6_cell_ops(f_log: float, f_tail: float):
+    """Instructions per cell by pipe, the branches weighted by ``f_log``
+    (cells with |u*u| >= 0.4146, whose log1p takes the log) and
+    ``f_tail`` (cells with w >= 5, erf_inv's tail)."""
+    weight = {"log1p, |y| < 0.4146": 1.0 - f_log, "log1p, else": f_log,
+              "erf_inv, w >= 5": f_tail}
+    return [sum(weight.get(k, 1.0) * v[i] for k, v in K6_CELL.items()) for i in range(4)]
+
+
+def k6_branch_shares(key, shape):
+    """The shares of this run's cells that take log1p's log side and
+    erf_inv's tail, from the uniforms the kernel draws for ``key``."""
+    from repro_torch.core import prng, xmath
+    lo = float(np.nextafter(np.float32(-1), np.float32(0)))
+    u = prng.uniform(key, shape, lo, 1.0, device="cuda").flatten()
+    y = u * -u
+    far = y[y.abs() >= float.fromhex("0x1.a8279ap-2")]
+    w = -xmath.log1p(far[far < -0.9])  # w >= 5 needs |y| > 0.993
+    n = u.numel()
+    return far.numel() / n, int((w >= 5.0).sum()) / n
 
 
 def check_k6(timer, qcfg, summary, card):
     """K6 bit for bit against its plain version on one slice plane of
     each served weight shape, for each slice width of INT8 (1, 1, 2, 4
     bits); timed on the vocab head's plane (136 M cells)."""
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import k6_sass
+
     from repro_torch.core.prng import PRNGKey
     from repro_torch.kernels import program_noise as pn
 
@@ -738,12 +980,27 @@ def check_k6(timer, qcfg, summary, card):
     key = PRNGKey(7)
     t = timer(lambda: pn.program_noise_cuda(key, cells, 4, **kw), iters=5)
     tp = timer(lambda: pn.program_noise_ref(key, cells, 4, **kw), iters=2)
+    # the bound: the bytes, or the operations a cell needs at each pipe's
+    # rate, whichever pipe (or the issue of all of them) takes longest
     nbytes = 8 * cells.numel()
-    ops_ = OPS_PER_NOISE_CELL * cells.numel()
-    b, by = bound_ms(nbytes, ops_)
+    f_log, f_tail = k6_branch_shares(key, cells.shape)
+    ops_ = k6_cell_ops(f_log, f_tail)
+    cyc = max([sum(ops_) / ISSUE_PER_SM] + [n / r for n, r in zip(ops_, K6_PIPE_RATE)])
+    clk = k6_sass.max_sm_clock_mhz()
+    t_ops = cells.numel() * cyc / (k6_sass.SMS * clk * 1e6) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b, by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    sass = k6_sass.k6_count()
+    print(f"K6 work per cell: {sum(ops_):.2f} instructions (FP32 {ops_[0]:.2f}, ALU "
+          f"{ops_[1]:.2f}, XU {ops_[2]:.2f}, load / store {ops_[3]:.2f}; log1p's log side "
+          f"{f_log:.4f} of cells, erf_inv's tail {f_tail:.6f}): {cyc:.3f} SM cycles a cell "
+          f"(issue {sum(ops_) / ISSUE_PER_SM:.3f}, ALU at half rate {ops_[1] / 64:.3f}); SM "
+          f"clock {clk:.0f} MHz.  The compiled loop body: {sass['total']} SASS instructions "
+          f"(FP32 pipe {sass['fp32']}, integer {sass['integer']}, rest {sass['rest']}), "
+          f"{k6_sass.bound_ms(sass, cells.numel(), clk):.4f} ms at the issue rate")
     print(f"K6 time (the vocab head's slice plane, {cells.numel() / 1e6:.1f} M cells): kernel "
-          f"{t:.4f} ms  plain {tp:.4f} ms  bound {b:.4f} ms ({by}, {nbytes / 1e9:.2f} GB, "
-          f"{ops_ / 1e9:.1f} G operations)  [{card}]")
+          f"{t:.4f} ms  plain {tp:.4f} ms  bound {b:.4f} ms ({by}; operations {t_ops:.4f} ms, "
+          f"bytes {nbytes / 1e9:.2f} GB {t_bytes:.4f} ms), {b / t:.1%} of it  [{card}]")
     summary["program_noise"] = dict(max_abs_err=worst, ms=t, plain_ms=tp, bound_ms=b,
                                     bound_by=by, library_ms=None)
     del cells
@@ -890,12 +1147,13 @@ def main() -> int:
     qcfg = get("qwen2-0.5b")
     timer = Timer()
     tiny = torch.empty(1, device="cuda")
-    print(f"timer floor (one 4-byte fill kernel): {timer(lambda: tiny.zero_(), iters=20):.4f} ms  "
-          f"[{card}]")
+    floor = timer(lambda: tiny.zero_(), iters=20)
+    print(f"timer floor (one 4-byte fill kernel): {floor:.4f} ms  [{card}]")
     summary: dict = {}
     check_k1(timer, qcfg, summary)
     check_k1_tiles(timer, summary, card)
-    check_k2_k3(timer, qcfg, summary, card)
+    check_k2_k3(timer, qcfg, summary, card, floor)
+    check_k2_k3_long(timer, qcfg, summary, card, floor)
     check_k4(timer, summary, card)
     check_k5(timer, qcfg, summary, card)
     check_k6(timer, qcfg, summary, card)

@@ -21,27 +21,39 @@
 //     cast to the pool dtype (the reference's order);
 //   PV: an fmaf chain over the keys in order, output in the pool dtype.
 //
-// K3 (paged_chunk_kernel, attend): one block of 128 threads per (query
-// row, query head); a thread per key for the scores, one thread sums the
-// softmax, a thread per dim runs the P.V chain, reading K / V from
-// global memory.
-//
-// K2 (paged_decode_kernel) serves a whole GQA group: one block of 256
-// threads per (slot, KV head) computes all G = H / KV query heads, so
-// each K / V row is read once per group.  It streams the live prefix in
+// One design serves both (attend_group): a block of 256 threads computes
+// all G = H / KV query heads of one KV head for one query row -- a slot's
+// token (K2, grid (B, KV)) or one row of the chunk (K3, grid (C, KV),
+// row c at position start + c) -- so each K / V row is read once per
+// group and row, not once per query head.  It streams the live prefix in
 // tiles of whole pool blocks (64 keys), following the block table (its
 // live entries staged in shared memory), with coalesced cp.async copies
 // (16 B where a head's row is a multiple of 16 B) into a ring of four
-// tiles, three in flight: first the K tiles, whose G x L scores stay in
-// shared memory, then the exact two-pass softmax, then the V tiles.  The
-// chains above run side by side: per K tile a thread takes one key and
-// two query heads (two score chains sharing each k load, unrolled over
-// head_dim 18, 32, 64 and 128; any other head_dim takes a run-time loop
-// in the same order); the G sums of l run in G threads; per V tile a
-// thread takes one dim and up to two heads, so one V load feeds both P.V
-// chains, which it carries across the tiles in registers.  Shared memory
-// holds the G x S scores and four tiles, which bounds the context (the
-// wrapper raises past it).
+// tiles, three in flight.  The chains run side by side: per K tile a
+// thread takes one key and two query heads (two score chains sharing
+// each k load, unrolled over head_dim 18, 32, 64 and 128; any other
+// head_dim takes a run-time loop in the same order); the G sums of l run
+// in G threads; per V tile a thread takes one dim and up to two heads, so
+// one V load feeds both P.V chains, which it carries across the tiles in
+// registers.
+//
+// Shared memory holds the group's q, the tile ring, and a region for
+// scores and live block-table entries, sized per launch by the table a
+// block may walk (K2: the table width; K3: blocks 0..lim): every score
+// of that table where it fits, else all that the tiles leave of the 227
+// KB a block may use.  A short table thus keeps a small footprint (two
+// blocks an SM at the served shapes) and a long one gets the whole
+// region.  Each block then decides on the device, from its own live
+// length, how to use it.  Where the G x L scores and the live table
+// entries fit the region (at qwen2-0.5b's G = 7, head_dim 64, float32:
+// every block of a table up to 354 blocks, and L up to 5,668 keys in a
+// wider one), the block keeps every score and runs the exact two-pass softmax on them: K
+// tiles, softmax, V tiles.  Past that it keeps one tile of scores and
+// recomputes them, with the same chains, in three passes over the K
+// tiles -- the max, then the sum of p, then the weights, each followed
+// by the tile's V -- so the result is the same to the bit, and the
+// context is bounded only by the table entries the region can stage
+// (39,764 blocks at qwen2-0.5b's heads).
 // Bound: bytes of the live K/V prefix (tiny next to the DPE weights); the
 // in-order chains make these calls latency-bound instead (PERF.md).
 #include <cuda_runtime.h>
@@ -52,9 +64,6 @@
 #include <type_traits>
 
 namespace {
-
-constexpr int THREADS = 128;
-constexpr int NWARP = THREADS / 32;
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
@@ -73,143 +82,55 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Block-wide max of one value per thread.
-__device__ float block_max(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_max(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float r = red[0];
-    for (int w = 1; w < NWARP; ++w) r = fmaxf(r, red[w]);
-    red[NWARP] = r;
-  }
-  __syncthreads();
-  const float r = red[NWARP];
-  __syncthreads();
-  return r;
-}
-
-// Attention of one query head over keys lo..hi.  Each sum is one
-// float32 fused multiply-add chain (or add chain) in order, which the
-// plain versions replay bit for bit.
-template <typename TQ, typename TKV>
-__device__ void attend(const TQ* __restrict__ q_head, const TKV* __restrict__ pool_k,
-                       const TKV* __restrict__ pool_v, const int* __restrict__ table,
-                       int bs, int KV, int hd, int kvh, int lo, int hi, int S, float scale,
-                       bool cast_q, bool round_scores, TKV* __restrict__ out_head,
-                       float* smem) {
-  float* qs = smem;              // [hd]
-  float* sc = qs + hd;           // [S]: scores, then softmax weights
-  float* red = sc + S;           // [NWARP + 1]
-  float* lsum = red + NWARP + 1; // [1]
-  int* rows = (int*)(lsum + 1);  // [S]: pool row of each key lo..hi
-  const int tid = threadIdx.x;
-  const int L = hi - lo + 1;
-  for (int d = tid; d < hd; d += THREADS) {
-    float v = to_f(q_head[d]);
-    if (cast_q) v = to_f(from_f<TKV>(v));
-    qs[d] = v;
-  }
-  for (int t = tid; t < L; t += THREADS) {
-    const int key = lo + t;
-    rows[t] = table[key / bs] * bs + key % bs;
-  }
-  __syncthreads();
-  if (L <= 0) {  // no admissible key (only a discarded pad query row)
-    for (int d = tid; d < hd; d += THREADS) out_head[d] = from_f<TKV>(0.f);
-    return;
-  }
-  // scores: a thread per key, q.k as an fma chain over d
-  for (int t = tid; t < L; t += THREADS) {
-    const TKV* krow = pool_k + ((size_t)rows[t] * KV + kvh) * hd;
-    float dot = 0.f;
-    for (int d = 0; d < hd; ++d) dot = fmaf(qs[d], to_f(krow[d]), dot);
-    if (round_scores) dot = to_f(from_f<__nv_bfloat16>(dot));
-    sc[t] = __fmul_rn(dot, scale);
-  }
-  __syncthreads();
-  // softmax: exact max, p = exp(s - m), the sum in key order by one
-  // thread, then p / l in the value dtype
-  float m = -INFINITY;
-  for (int t = tid; t < L; t += THREADS) m = fmaxf(m, sc[t]);
-  m = block_max(m, red);
-  for (int t = tid; t < L; t += THREADS) sc[t] = expf(__fadd_rn(sc[t], -m));
-  __syncthreads();
-  if (tid == 0) {
-    float l = 0.f;
-    for (int t = 0; t < L; ++t) l = __fadd_rn(l, sc[t]);
-    *lsum = l;
-  }
-  __syncthreads();
-  const float l = *lsum;
-  for (int t = tid; t < L; t += THREADS) sc[t] = to_f(from_f<TKV>(__fdiv_rn(sc[t], l)));
-  __syncthreads();
-  // PV: a thread per dim, an fma chain over the keys in order
-  for (int d = tid; d < hd; d += THREADS) {
-    const TKV* vcol = pool_v + (size_t)kvh * hd + d;
-    float acc = 0.f;
-#pragma unroll 8
-    for (int t = 0; t < L; ++t) acc = fmaf(sc[t], to_f(vcol[(size_t)rows[t] * KV * hd]), acc);
-    out_head[d] = from_f<TKV>(acc);
-  }
-}
-
-// grid (C, H): chunk query c, query head h
-template <typename TQ, typename TKV>
-__global__ void __launch_bounds__(THREADS)
-paged_chunk_kernel(const TQ* __restrict__ q, const TKV* __restrict__ pool_k,
-                   const TKV* __restrict__ pool_v, const int* __restrict__ bt_row,
-                   int start, int lim, TKV* __restrict__ out, int nb, int bs, int KV,
-                   int H, int hd, int window, float scale, int round_scores) {
-  extern __shared__ float smem[];
-  const int c = blockIdx.x, h = blockIdx.y, S = nb * bs;
-  const int qi = start + c;
-  const int hi = min(qi, (lim + 1) * bs - 1);  // causal ki <= qi, blocks 0..lim
-  const int lo = window > 0 ? max(0, qi - window + 1) : 0;
-  const size_t row = (size_t)c * H + h;
-  attend<TQ, TKV>(q + row * hd, pool_k, pool_v, bt_row, bs, KV, hd, h / (H / KV), lo, hi, S,
-                  scale, /*cast_q=*/false, round_scores != 0, out + row * hd, smem);
-}
-
-// ---------------------------------------------------------------------------
-// K2: one block per (slot, KV head), all G query heads of the group
-// ---------------------------------------------------------------------------
-
-constexpr int DEC_THREADS = 256;
-constexpr int DEC_WARPS = DEC_THREADS / 32;
-constexpr int DEC_CHAINS = 2;       // P.V chains (query heads) a thread carries per pass
-constexpr int DEC_STAGE_KEYS = 64;  // keys per staged tile, in whole pool blocks
-constexpr int DEC_NBUF = 4;         // staged tiles in shared memory, DEC_NBUF - 1 in flight
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int CHAINS = 2;       // P.V chains (query heads) a thread carries per pass
+constexpr int STAGE_KEYS = 64;  // keys per staged tile, in whole pool blocks
+constexpr int NBUF = 4;         // staged tiles in shared memory, NBUF - 1 in flight
 constexpr size_t MAX_SMEM = 232448; // what one block may use on an H100
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
 
-// K2's shared memory: the group's q (float), the [G][lp] scores, the G
-// normalisers, the slot's nb block-table entries, then DEC_NBUF staged
-// tiles of stage_keys rows with stride ld.  Vector tiles keep the pool
-// dtype and pad each row by 16 B; the others hold float32 rows of odd
-// stride.  kernels/paged_attention.py repeats this layout to refuse a
-// context that does not fit.
-struct DecodeLayout {
-  int lp, stage_keys, ld;
-  size_t sc, ls, tab, tiles, tile_bytes, total;
+// Row stride of a score row holding n keys: at least n, = 4 mod 32, so G
+// rows read side by side hit distinct banks.
+__host__ __device__ inline int score_stride(int n) { return (n + 27) / 32 * 32 + 4; }
+
+// The shared memory of one block: the group's q (float), the G
+// normalisers and maxima, the region (scores and the live block-table
+// entries), then NBUF staged tiles of stage_keys rows with stride ld.
+// Vector tiles keep the pool dtype and pad each row by 16 B; the others
+// hold float32 rows of odd stride.  The region holds all G score rows of
+// an nb-block table and its entries where they fit in what the tiles
+// leave of MAX_SMEM (room), else room; it always holds one tile's scores
+// and the entries.  kernels/paged_attention.py::group_layout repeats
+// this layout.
+struct Layout {
+  int stage_keys, ld, tkp;  // tkp: row stride of one tile's scores
+  size_t ls, mx, region, room, region_bytes, tile_sc_bytes, tiles, tile_bytes, total;
+  bool ok;  // room holds one tile's scores and the nb entries
 };
 
-__host__ __device__ inline DecodeLayout decode_layout(int G, int hd, int nb, int bs, bool vec,
-                                                      int kv_bytes) {
-  const int S = nb * bs;
-  DecodeLayout d;
-  d.lp = (S + 31) / 32 * 32 + 4;  // = 4 mod 32: G rows read side by side hit distinct banks
-  d.stage_keys = (bs < DEC_STAGE_KEYS ? DEC_STAGE_KEYS / bs : 1) * bs;
+__host__ __device__ inline Layout group_layout(int G, int hd, int bs, bool vec, int kv_bytes,
+                                               int nb) {
+  Layout d;
+  d.stage_keys = (bs < STAGE_KEYS ? STAGE_KEYS / bs : 1) * bs;
   d.ld = vec ? hd + 16 / kv_bytes : (hd | 1);
+  d.tkp = score_stride(d.stage_keys + 3);  // keys of a tile from its base rounded down to 4
   const int tile_elt = vec ? kv_bytes : 4;
-  d.sc = align16(sizeof(float) * (size_t)G * hd);
-  d.ls = d.sc + sizeof(float) * (size_t)G * d.lp;
-  d.tab = d.ls + sizeof(float) * (size_t)G;
-  d.tiles = align16(d.tab + sizeof(int) * (size_t)nb);
   d.tile_bytes = align16((size_t)d.stage_keys * d.ld * tile_elt);
-  d.total = d.tiles + DEC_NBUF * d.tile_bytes;
+  d.tile_sc_bytes = align16(sizeof(float) * (size_t)G * d.tkp);
+  d.ls = align16(sizeof(float) * (size_t)G * hd);
+  d.mx = d.ls + sizeof(float) * (size_t)G;
+  d.region = align16(d.mx + sizeof(float) * (size_t)G);
+  const size_t fixed = d.region + NBUF * d.tile_bytes;
+  d.room = fixed < MAX_SMEM ? (MAX_SMEM - fixed) & ~(size_t)15 : 0;
+  const size_t entries = align16(sizeof(int) * (size_t)nb);
+  const size_t least = d.tile_sc_bytes + entries;
+  const size_t all = align16(sizeof(float) * (size_t)G * score_stride(nb * bs)) + entries;
+  d.ok = least <= d.room;
+  d.region_bytes = d.ok ? (all < d.room ? (all > least ? all : least) : d.room) : 0;
+  d.tiles = d.region + d.region_bytes;
+  d.total = d.tiles + NBUF * d.tile_bytes;
   return d;
 }
 
@@ -227,7 +148,6 @@ template <int N>
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
-
 
 // Up to NH q . k chains side by side: heads h[0..NH) against one key row
 // (the k loads are shared, and the chains' latencies overlap).  Each is
@@ -279,70 +199,100 @@ __device__ __forceinline__ void dot_heads(const float* __restrict__ qs, const in
   }
 }
 
-// grid (B, KV): slot b, KV head kvh, query heads kvh*G .. kvh*G + G - 1.
-// HD > 0 fixes head_dim at compile time; VEC tiles need HD * sizeof(TKV)
-// to be a multiple of 16 B and both pools 16-B aligned.  head_dim <=
-// DEC_THREADS.
-template <typename TKV, int HD, bool VEC>
-__global__ void __launch_bounds__(DEC_THREADS)
-paged_decode_kernel(const void* __restrict__ q, int q_bf16, const TKV* __restrict__ pool_k,
-                    const TKV* __restrict__ pool_v, const int* __restrict__ bt,
-                    const int* __restrict__ pos, TKV* __restrict__ out, int nb, int bs, int KV,
-                    int H, int hd_rt, int window, float scale) {
+struct Params {
+  const void* q;          // K2 (B, H, hd), K3 (C, H, hd); float32 or bf16
+  const void* pk;         // pools (n_blocks, bs, KV, hd)
+  const void* pv;
+  const int* bt;          // K2 (B, nb) tables, K3 the slot's (nb,) row
+  const int* pos;         // K2 (B,) positions
+  void* out;              // like q, in the pool dtype
+  int q_bf16, nb, bs, KV, H, hd, window;
+  int start, lim;         // K3: the chunk's first position, its last block
+  int round_scores;       // K3: q and the pools both bf16
+  float scale;
+};
+
+// What a tile of the ring holds, and what the block does with it.
+enum TileKind { K_SCORES, K_MAX, K_SUM, K_WEIGHTS, V_TILE };
+
+// One query row's group over keys lo..hi.  KEEP: every score stays in
+// the region ([G][lp] from key `base`); otherwise one tile's scores do
+// ([G][tkp] from the tile's first key rounded down to 4) and are
+// recomputed per pass.
+template <typename TKV, int HD, bool VEC, bool CHUNK, bool KEEP>
+__device__ __forceinline__ void run_group(const Params& a, const Layout& lay, int hd, int G,
+                                          int kvh, int lo, int hi, const int* __restrict__ btrow,
+                                          TKV* __restrict__ outg) {
   typedef typename std::conditional<VEC, TKV, float>::type TT;  // tile element
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int hd = HD > 0 ? HD : hd_rt;
-  const int G = H / KV, S = nb * bs;
-  const int b = blockIdx.x, kvh = blockIdx.y, tid = threadIdx.x;
-  const DecodeLayout lay = decode_layout(G, hd, nb, bs, VEC, (int)sizeof(TKV));
-  float* qs = reinterpret_cast<float*>(smem_raw);             // [G][hd]
-  float* sc = reinterpret_cast<float*>(smem_raw + lay.sc);    // [G][lp]: s, then p, then w
-  float* ls = reinterpret_cast<float*>(smem_raw + lay.ls);    // [G]
-  int* tab = reinterpret_cast<int*>(smem_raw + lay.tab);      // the live table entries
-  const int lp = lay.lp, ld = lay.ld;
-
-  const size_t head0 = (size_t)b * H + (size_t)kvh * G;  // the group's first query head
-  const int nq = G * hd;
-  for (int c = tid; c < nq; c += DEC_THREADS) {  // q cast to the pool dtype
-    const float v = q_bf16 ? to_f(reinterpret_cast<const __nv_bfloat16*>(q)[head0 * hd + c])
-                           : reinterpret_cast<const float*>(q)[head0 * hd + c];
-    qs[c] = to_f(from_f<TKV>(v));
-  }
-  const int p = pos[b];
-  const int hi = min(p, S - 1);  // keys ki <= pos
-  const int lo = window > 0 ? max(0, p - window + 1) : 0;
+  const int tid = threadIdx.x, bs = a.bs, KV = a.KV, ld = lay.ld;
+  const float* qs = reinterpret_cast<const float*>(smem_raw);  // [G][hd]
+  float* ls = reinterpret_cast<float*>(smem_raw + lay.ls);      // [G]
+  float* mx = reinterpret_cast<float*>(smem_raw + lay.mx);      // [G]
+  unsigned char* region = smem_raw + lay.region;
+  const TKV* pool_k = reinterpret_cast<const TKV*>(a.pk);
+  const TKV* pool_v = reinterpret_cast<const TKV*>(a.pv);
   const int L = hi - lo + 1;
-  TKV* outg = out + head0 * hd;
-  if (L <= 0) {
-    for (int c = tid; c < nq; c += DEC_THREADS) outg[c] = from_f<TKV>(0.f);
-    return;
-  }
-  // key k's score of head h sits at sc[h * lp + k - base]: indices are
-  // congruent to keys mod 4, so 4 keys from a multiple of 4 are one float4
+  // key k's score of head h sits at sc[h * sld + k - (tile base)]:
+  // indices are congruent to keys mod 4, so 4 keys from a multiple of 4
+  // are one float4
   const int base = lo & ~3, off = lo - base;
+  const int sld = KEEP ? score_stride(off + L) : lay.tkp;
+  float* sc = reinterpret_cast<float*>(region);
+  int* tab = reinterpret_cast<int*>(
+      region + (KEEP ? align16(sizeof(float) * (size_t)G * sld) : lay.tile_sc_bytes));
 
-  // tiles: the K tiles 0..nst-1, then the V tiles once per pass of chains
   const int sb = lay.stage_keys / bs;  // pool blocks per tile
   const int jlo = lo / bs, jhi = hi / bs;
-  for (int j = tid; j <= jhi - jlo; j += DEC_THREADS) tab[j] = bt[(size_t)b * nb + jlo + j];
+  for (int j = tid; j <= jhi - jlo; j += THREADS) tab[j] = btrow[jlo + j];
+  if constexpr (!KEEP) {
+    for (int h = tid; h < G; h += THREADS) {
+      mx[h] = -INFINITY;
+      ls[h] = 0.f;
+    }
+  }
   __syncthreads();
   const int nst = (jhi - jlo) / sb + 1;
   // P.V: thread (group gi, dim d) carries the chains of heads gi, gi +
-  // ngroups, ... (DEC_CHAINS of them per pass), so one V load feeds them all
-  const int ngroups = DEC_THREADS / hd;
+  // ngroups, ... (CHAINS of them per pass), so one V load feeds them all
+  const int ngroups = THREADS / hd;
   const int gi = tid / hd, dd = tid - gi * hd;
   const int cmax = (G + ngroups - 1) / ngroups;
-  const int npass = (cmax + DEC_CHAINS - 1) / DEC_CHAINS;
-  const int ntiles = nst * (1 + npass);
+  const int npass = (cmax + CHAINS - 1) / CHAINS;
+  // KEEP: the K tiles, then the V tiles once per pass of chains.
+  // Otherwise: the K tiles for the max, again for the sum, then per pass
+  // of chains the K and the V of each tile in turn.
+  const int ntiles = KEEP ? nst * (1 + npass) : 2 * nst * (1 + npass);
+  auto kind_of = [&](int i, int& st, int& pass) -> TileKind {
+    if constexpr (KEEP) {
+      if (i < nst) {
+        st = i;
+        pass = 0;
+        return K_SCORES;
+      }
+      st = (i - nst) % nst;
+      pass = (i - nst) / nst;
+      return V_TILE;
+    } else {
+      if (i < 2 * nst) {
+        st = i % nst;
+        pass = 0;
+        return i < nst ? K_MAX : K_SUM;
+      }
+      const int j = i - 2 * nst;
+      pass = j / (2 * nst);
+      st = (j % (2 * nst)) / 2;
+      return (j & 1) ? V_TILE : K_WEIGHTS;
+    }
+  };
 
   auto tile_at = [&](int i) {
-    return reinterpret_cast<TT*>(smem_raw + lay.tiles + (i % DEC_NBUF) * lay.tile_bytes);
+    return reinterpret_cast<TT*>(smem_raw + lay.tiles + (i % NBUF) * lay.tile_bytes);
   };
   // copy tile i: its pool blocks one after the other, never past jhi
   auto issue = [&](int i) {
-    const bool is_v = i >= nst;
-    const int st = is_v ? (i - nst) % nst : i;
-    const TKV* pool = is_v ? pool_v : pool_k;
+    int st, pass;
+    const TKV* pool = kind_of(i, st, pass) == V_TILE ? pool_v : pool_k;
     TT* dst = tile_at(i);
     const int j0 = st * sb;  // into tab, which starts at block jlo
     const int nblk = min(sb, jhi - jlo - j0 + 1);
@@ -352,12 +302,12 @@ paged_decode_kernel(const void* __restrict__ q, int q_bf16, const TKV* __restric
       if constexpr (VEC) {  // 16-B copies
         constexpr int CH = 16 / (int)sizeof(TKV);
         constexpr int ROWCH = HD / CH;
-        for (int e = tid; e < bs * ROWCH; e += DEC_THREADS) {
+        for (int e = tid; e < bs * ROWCH; e += THREADS) {
           const int r = e / ROWCH, c = (e % ROWCH) * CH;
           cp_async16(d + r * ld + c, src + (size_t)r * KV * HD + c);
         }
       } else {  // float32 rows: 4-B copies; bf16 rows: converted loads
-        for (int e = tid; e < bs * hd; e += DEC_THREADS) {
+        for (int e = tid; e < bs * hd; e += THREADS) {
           const int r = e / hd, c = e - r * hd;
           if constexpr (std::is_same<TKV, float>::value)
             cp_async4(d + r * ld + c, src + (size_t)r * KV * hd + c);
@@ -368,11 +318,11 @@ paged_decode_kernel(const void* __restrict__ q, int q_bf16, const TKV* __restric
     }
   };
 
-  // the exact two-pass softmax over the scores of keys lo..hi
+  // KEEP: the exact two-pass softmax over the scores of keys lo..hi
   auto softmax = [&]() {
     const int warp = tid >> 5, lane = tid & 31;
-    for (int h = warp; h < G; h += DEC_WARPS) {
-      float* row = sc + h * lp + off;
+    for (int h = warp; h < G; h += WARPS) {
+      float* row = sc + h * sld + off;
       float m = -INFINITY;
 #pragma unroll 4
       for (int t = lane; t < L; t += 32) m = fmaxf(m, row[t]);
@@ -381,8 +331,8 @@ paged_decode_kernel(const void* __restrict__ q, int q_bf16, const TKV* __restric
       for (int t = lane; t < L; t += 32) row[t] = expf(__fadd_rn(row[t], -m));
     }
     __syncthreads();
-    for (int h = tid; h < G; h += DEC_THREADS) {  // l in key order, G chains side by side
-      const float* row = sc + h * lp;
+    for (int h = tid; h < G; h += THREADS) {  // l in key order, G chains side by side
+      const float* row = sc + h * sld;
       float l = 0.f;
       int t = off;
       const int end = off + L;
@@ -403,9 +353,9 @@ paged_decode_kernel(const void* __restrict__ q, int q_bf16, const TKV* __restric
       ls[h] = l;
     }
     __syncthreads();
-    for (int h = warp; h < G; h += DEC_WARPS) {
+    for (int h = warp; h < G; h += WARPS) {
       const float l = ls[h];
-      float* row = sc + h * lp + off;
+      float* row = sc + h * sld + off;
 #pragma unroll 4
       for (int t = lane; t < L; t += 32) row[t] = to_f(from_f<TKV>(__fdiv_rn(row[t], l)));
     }
@@ -414,29 +364,30 @@ paged_decode_kernel(const void* __restrict__ q, int q_bf16, const TKV* __restric
 
   // a chain past the last head reads head 0's weights and writes nothing,
   // so that every thread runs the same branch-free chains
-  float acc[DEC_CHAINS];
-  const float* wrow[DEC_CHAINS];  // the chain's weights, indexed by key - base
-  bool live[DEC_CHAINS];
-  for (int i = 0; i < DEC_NBUF - 1; ++i) {
+  float acc[CHAINS];
+  const float* wrow[CHAINS];  // the chain's weights, indexed by key - wb
+  bool live[CHAINS];
+  for (int i = 0; i < NBUF - 1; ++i) {
     if (i < ntiles) issue(i);
     cp_commit();  // empty groups keep the count uniform
   }
   for (int i = 0; i < ntiles; ++i) {
-    if (i + DEC_NBUF - 1 < ntiles) issue(i + DEC_NBUF - 1);  // into the buffer tile i-1 left
+    if (i + NBUF - 1 < ntiles) issue(i + NBUF - 1);  // into the buffer tile i-1 left
     cp_commit();
-    cp_wait<DEC_NBUF - 1>();  // tile i has landed
+    cp_wait<NBUF - 1>();  // tile i has landed
     __syncthreads();
     const TT* tile = tile_at(i);
-    const bool is_v = i >= nst;
-    const int st = is_v ? (i - nst) % nst : i;
+    int st, pass;
+    const TileKind kind = kind_of(i, st, pass);
     const int kbase = (jlo + st * sb) * bs;
     const int klo = max(kbase, lo), khi = min(kbase + lay.stage_keys - 1, hi);
     const int nk = khi - klo + 1;
-    if (!is_v) {
+    const int wb = KEEP ? base : (kbase & ~3);  // key of index 0 in a score row
+    if (kind != V_TILE) {
       // scores: per work item one key and two query heads
       constexpr int NH = 2;
       const int pairs = (G + NH - 1) / NH;
-      for (int c = tid; c < pairs * nk; c += DEC_THREADS) {
+      for (int c = tid; c < pairs * nk; c += THREADS) {
         const int pr = c / nk, key = klo + (c - pr * nk);
         int h[NH];
 #pragma unroll
@@ -444,18 +395,51 @@ paged_decode_kernel(const void* __restrict__ q, int q_bf16, const TKV* __restric
         float dot[NH];
         dot_heads<NH, HD, VEC>(qs, h, tile + (key - kbase) * ld, hd, dot);
 #pragma unroll
-        for (int j = 0; j < NH; ++j) sc[h[j] * lp + key - base] = __fmul_rn(dot[j], scale);
+        for (int j = 0; j < NH; ++j) {
+          float s = dot[j];
+          if constexpr (CHUNK)
+            if (a.round_scores) s = to_f(from_f<__nv_bfloat16>(s));
+          sc[h[j] * sld + key - wb] = __fmul_rn(s, a.scale);
+        }
+      }
+      if constexpr (!KEEP) {
+        __syncthreads();
+        if (kind == K_MAX) {  // the running max of each head, a thread per head
+          for (int h = tid; h < G; h += THREADS) {
+            const float* row = sc + h * sld + klo - wb;
+            float m = mx[h];
+#pragma unroll 8
+            for (int t = 0; t < nk; ++t) m = fmaxf(m, row[t]);
+            mx[h] = m;
+          }
+        } else {  // p = exp(s - m); the sum pass adds it, the weight pass divides
+          for (int c = tid; c < G * nk; c += THREADS) {
+            const int h = c / nk;
+            float* s = sc + h * sld + klo - wb + (c - h * nk);
+            const float p = expf(__fadd_rn(*s, -mx[h]));
+            *s = kind == K_SUM ? p : to_f(from_f<TKV>(__fdiv_rn(p, ls[h])));
+          }
+          if (kind == K_SUM) {
+            __syncthreads();
+            for (int h = tid; h < G; h += THREADS) {  // l in key order, carried across tiles
+              const float* row = sc + h * sld + klo - wb;
+              float l = ls[h];
+#pragma unroll 8
+              for (int t = 0; t < nk; ++t) l = __fadd_rn(l, row[t]);
+              ls[h] = l;
+            }
+          }
+        }
       }
     } else {
-      if (i == nst) softmax();
-      const int pass = (i - nst) / nst;
+      if (KEEP && i == nst) softmax();
       if (st == 0) {
 #pragma unroll
-        for (int j = 0; j < DEC_CHAINS; ++j) {
-          const int h = gi + ngroups * (pass * DEC_CHAINS + j);
+        for (int j = 0; j < CHAINS; ++j) {
+          const int h = gi + ngroups * (pass * CHAINS + j);
           live[j] = gi < ngroups && h < G;
           acc[j] = 0.f;
-          wrow[j] = sc + (live[j] ? h : 0) * lp;
+          wrow[j] = sc + (live[j] ? h : 0) * sld;
         }
       }
       // P.V: each chain over this tile's keys in order; the weights of 8
@@ -465,22 +449,22 @@ paged_decode_kernel(const void* __restrict__ q, int q_bf16, const TKV* __restric
       for (; key <= khi && (key & 3); ++key) {
         const float v = to_f(vcol[(key - kbase) * ld]);
 #pragma unroll
-        for (int j = 0; j < DEC_CHAINS; ++j) acc[j] = fmaf(wrow[j][key - base], v, acc[j]);
+        for (int j = 0; j < CHAINS; ++j) acc[j] = fmaf(wrow[j][key - wb], v, acc[j]);
       }
       for (; key + 8 <= khi + 1; key += 8) {
         float v8[8];
-        float4 w4[DEC_CHAINS][2];
+        float4 w4[CHAINS][2];
 #pragma unroll
         for (int u = 0; u < 8; ++u) v8[u] = to_f(vcol[(key + u - kbase) * ld]);
 #pragma unroll
-        for (int j = 0; j < DEC_CHAINS; ++j) {
-          w4[j][0] = *reinterpret_cast<const float4*>(wrow[j] + key - base);
-          w4[j][1] = *reinterpret_cast<const float4*>(wrow[j] + key - base + 4);
+        for (int j = 0; j < CHAINS; ++j) {
+          w4[j][0] = *reinterpret_cast<const float4*>(wrow[j] + key - wb);
+          w4[j][1] = *reinterpret_cast<const float4*>(wrow[j] + key - wb + 4);
         }
 #pragma unroll
         for (int u = 0; u < 2; ++u)
 #pragma unroll
-          for (int j = 0; j < DEC_CHAINS; ++j) {
+          for (int j = 0; j < CHAINS; ++j) {
             acc[j] = fmaf(w4[j][u].x, v8[4 * u], acc[j]);
             acc[j] = fmaf(w4[j][u].y, v8[4 * u + 1], acc[j]);
             acc[j] = fmaf(w4[j][u].z, v8[4 * u + 2], acc[j]);
@@ -490,12 +474,12 @@ paged_decode_kernel(const void* __restrict__ q, int q_bf16, const TKV* __restric
       for (; key <= khi; ++key) {
         const float v = to_f(vcol[(key - kbase) * ld]);
 #pragma unroll
-        for (int j = 0; j < DEC_CHAINS; ++j) acc[j] = fmaf(wrow[j][key - base], v, acc[j]);
+        for (int j = 0; j < CHAINS; ++j) acc[j] = fmaf(wrow[j][key - wb], v, acc[j]);
       }
       if (st == nst - 1) {
 #pragma unroll
-        for (int j = 0; j < DEC_CHAINS; ++j)
-          if (live[j]) outg[(gi + ngroups * (pass * DEC_CHAINS + j)) * hd + dd] = from_f<TKV>(acc[j]);
+        for (int j = 0; j < CHAINS; ++j)
+          if (live[j]) outg[(gi + ngroups * (pass * CHAINS + j)) * hd + dd] = from_f<TKV>(acc[j]);
       }
     }
     __syncthreads();  // tile i's buffer is refilled next iteration
@@ -503,70 +487,90 @@ paged_decode_kernel(const void* __restrict__ q, int q_bf16, const TKV* __restric
   cp_wait<0>();  // only empty groups can be pending here
 }
 
-size_t smem_bytes(int hd, int S) {
-  return sizeof(float) * ((size_t)hd + 2 * (size_t)S + NWARP + 2);
-}
-
-template <typename K>
-cudaError_t prepare(K kern, size_t smem) {
-  if (smem > 48 * 1024)
-    return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  return cudaSuccess;
+// grid (rows, KV): query row blockIdx.x (K2: slot b at pos[b]; K3: chunk
+// row c at start + c), KV head kvh, query heads kvh*G .. kvh*G + G - 1.
+// HD > 0 fixes head_dim at compile time; VEC tiles need HD * sizeof(TKV)
+// to be a multiple of 16 B and both pools 16-B aligned.  head_dim <=
+// THREADS.
+template <typename TKV, int HD, bool VEC, bool CHUNK>
+__device__ __forceinline__ void attend_group(const Params& a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int hd = HD > 0 ? HD : a.hd;
+  const int G = a.H / a.KV, bs = a.bs;
+  const int b = blockIdx.x, kvh = blockIdx.y, tid = threadIdx.x;
+  const Layout lay = group_layout(G, hd, bs, VEC, (int)sizeof(TKV), CHUNK ? a.lim + 1 : a.nb);
+  float* qs = reinterpret_cast<float*>(smem_raw);  // [G][hd]
+  const size_t head0 = (size_t)b * a.H + (size_t)kvh * G;  // the group's first query head
+  const int nq = G * hd;
+  for (int c = tid; c < nq; c += THREADS) {
+    float v = a.q_bf16 ? to_f(reinterpret_cast<const __nv_bfloat16*>(a.q)[head0 * hd + c])
+                       : reinterpret_cast<const float*>(a.q)[head0 * hd + c];
+    if constexpr (!CHUNK) v = to_f(from_f<TKV>(v));  // K2: q cast to the pool dtype
+    qs[c] = v;
+  }
+  const int p = CHUNK ? a.start + b : a.pos[b];
+  // keys ki <= p inside the mapped blocks (K3: blocks 0..lim, so a pad row
+  // past the chunk's valid tokens stops at the end of block lim)
+  const int hi = min(p, (CHUNK ? a.lim + 1 : a.nb) * bs - 1);
+  const int lo = a.window > 0 ? max(0, p - a.window + 1) : 0;
+  TKV* outg = reinterpret_cast<TKV*>(a.out) + head0 * hd;
+  if (hi < lo) {  // no admissible key (only a discarded pad query row)
+    for (int c = tid; c < nq; c += THREADS) outg[c] = from_f<TKV>(0.f);
+    return;
+  }
+  const int* btrow = a.bt + (CHUNK ? 0 : (size_t)b * a.nb);
+  const int off = lo & 3, L = hi - lo + 1, nlive = hi / bs - lo / bs + 1;
+  const bool keep = align16(sizeof(float) * (size_t)G * score_stride(off + L)) +
+                        sizeof(int) * (size_t)nlive <= lay.region_bytes;
+  if (keep)
+    run_group<TKV, HD, VEC, CHUNK, true>(a, lay, hd, G, kvh, lo, hi, btrow, outg);
+  else
+    run_group<TKV, HD, VEC, CHUNK, false>(a, lay, hd, G, kvh, lo, hi, btrow, outg);
 }
 
 template <typename TKV, int HD, bool VEC>
-cudaError_t decode_hd(const void* q, int q_bf16, const void* pk, const void* pv, const int* bt,
-                      const int* pos, void* out, int B, int nb, int bs, int KV, int H, int hd,
-                      int window, float scale, cudaStream_t s) {
-  const DecodeLayout lay = decode_layout(H / KV, hd, nb, bs, VEC, (int)sizeof(TKV));
-  if (lay.total > MAX_SMEM) return cudaErrorInvalidValue;
-  auto kern = paged_decode_kernel<TKV, HD, VEC>;
-  // the shared-memory limit persists per device: raise it once per size,
-  // not on every decode step (the call costs host time)
-  static size_t raised[64];
+__global__ void __launch_bounds__(THREADS) paged_decode_kernel(const Params a) {
+  attend_group<TKV, HD, VEC, false>(a);
+}
+
+template <typename TKV, int HD, bool VEC>
+__global__ void __launch_bounds__(THREADS) paged_chunk_kernel(const Params a) {
+  attend_group<TKV, HD, VEC, true>(a);
+}
+
+template <typename TKV, int HD, bool VEC, bool CHUNK>
+cudaError_t launch_hd(const Params& a, int rows, cudaStream_t s) {
+  // the blocks walk the table's nb entries (K2) or blocks 0..lim (K3)
+  const Layout lay = group_layout(a.H / a.KV, a.hd, a.bs, VEC, (int)sizeof(TKV),
+                                  CHUNK ? a.lim + 1 : a.nb);
+  if (!lay.ok) return cudaErrorInvalidValue;
+  auto kern = CHUNK ? &paged_chunk_kernel<TKV, HD, VEC> : &paged_decode_kernel<TKV, HD, VEC>;
+  // the shared-memory limit persists per device: raise it to the most a
+  // block may use once, not on every launch (the call costs host time)
+  static bool raised[64];
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  if (dev >= 64 || raised[dev] < lay.total) {
-    e = prepare(kern, lay.total);
+  if (dev >= 64 || !raised[dev]) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MAX_SMEM);
     if (e != cudaSuccess) return e;
-    if (dev < 64) raised[dev] = lay.total;
+    if (dev < 64) raised[dev] = true;
   }
-  kern<<<dim3(B, KV), DEC_THREADS, lay.total, s>>>(q, q_bf16, (const TKV*)pk, (const TKV*)pv, bt,
-                                                   pos, (TKV*)out, nb, bs, KV, H, hd, window,
-                                                   scale);
+  kern<<<dim3(rows, a.KV), THREADS, lay.total, s>>>(a);
   return cudaGetLastError();
 }
 
 // head_dim 32 / 64 / 128 on 16-B aligned pools: vector tiles; 18 (the
 // smoke config) unrolled; any other head_dim the run-time loop
-template <typename TKV>
-cudaError_t decode(const void* q, int q_bf16, const void* pk, const void* pv, const int* bt,
-                   const int* pos, void* out, int B, int nb, int bs, int KV, int H, int hd,
-                   int window, float scale, cudaStream_t s) {
-  if (hd < 1 || hd > DEC_THREADS) return cudaErrorInvalidValue;
-  const bool aligned = (uintptr_t)pk % 16 == 0 && (uintptr_t)pv % 16 == 0;
-#define K2_ARGS q, q_bf16, pk, pv, bt, pos, out, B, nb, bs, KV, H, hd, window, scale, s
-  if (aligned && hd == 32) return decode_hd<TKV, 32, true>(K2_ARGS);
-  if (aligned && hd == 64) return decode_hd<TKV, 64, true>(K2_ARGS);
-  if (aligned && hd == 128) return decode_hd<TKV, 128, true>(K2_ARGS);
-  if (hd == 18) return decode_hd<TKV, 18, false>(K2_ARGS);
-  return decode_hd<TKV, 0, false>(K2_ARGS);
-#undef K2_ARGS
-}
-
-template <typename TQ, typename TKV>
-cudaError_t chunk(const void* q, const void* pk, const void* pv, const int* bt, int start,
-                  int lim, void* out, int C, int nb, int bs, int KV, int H, int hd, int window,
-                  float scale, int round_scores, cudaStream_t s) {
-  const size_t smem = smem_bytes(hd, nb * bs);
-  auto kern = paged_chunk_kernel<TQ, TKV>;
-  cudaError_t e = prepare(kern, smem);
-  if (e != cudaSuccess) return e;
-  kern<<<dim3(C, H), THREADS, smem, s>>>((const TQ*)q, (const TKV*)pk, (const TKV*)pv, bt, start,
-                                          lim, (TKV*)out, nb, bs, KV, H, hd, window, scale,
-                                          round_scores);
-  return cudaGetLastError();
+template <typename TKV, bool CHUNK>
+cudaError_t launch(const Params& a, int rows, cudaStream_t s) {
+  if (a.hd < 1 || a.hd > THREADS || a.H % a.KV) return cudaErrorInvalidValue;
+  const bool aligned = (uintptr_t)a.pk % 16 == 0 && (uintptr_t)a.pv % 16 == 0;
+  if (aligned && a.hd == 32) return launch_hd<TKV, 32, true, CHUNK>(a, rows, s);
+  if (aligned && a.hd == 64) return launch_hd<TKV, 64, true, CHUNK>(a, rows, s);
+  if (aligned && a.hd == 128) return launch_hd<TKV, 128, true, CHUNK>(a, rows, s);
+  if (a.hd == 18) return launch_hd<TKV, 18, false, CHUNK>(a, rows, s);
+  return launch_hd<TKV, 0, false, CHUNK>(a, rows, s);
 }
 
 }  // namespace
@@ -575,22 +579,15 @@ extern "C" int paged_decode_launch(const void* q, int q_bf16, const void* pk, co
                                    int kv_bf16, const int* bt, const int* pos, void* out, int B,
                                    int nb, int bs, int KV, int H, int hd, int window, float scale,
                                    cudaStream_t s) {
-  cudaError_t e = kv_bf16
-      ? decode<__nv_bfloat16>(q, q_bf16, pk, pv, bt, pos, out, B, nb, bs, KV, H, hd, window, scale, s)
-      : decode<float>(q, q_bf16, pk, pv, bt, pos, out, B, nb, bs, KV, H, hd, window, scale, s);
-  return (int)e;
+  const Params a{q, pk, pv, bt, pos, out, q_bf16, nb, bs, KV, H, hd, window, 0, 0, 0, scale};
+  return (int)(kv_bf16 ? launch<__nv_bfloat16, false>(a, B, s) : launch<float, false>(a, B, s));
 }
 
 extern "C" int paged_chunk_launch(const void* q, int q_bf16, const void* pk, const void* pv,
                                   int kv_bf16, const int* bt_row, int start, int lim, void* out,
                                   int C, int nb, int bs, int KV, int H, int hd, int window,
                                   float scale, cudaStream_t s) {
-  typedef __nv_bfloat16 bf;
-  const int rs = q_bf16 && kv_bf16;
-  cudaError_t e;
-  if (q_bf16 && kv_bf16) e = chunk<bf, bf>(q, pk, pv, bt_row, start, lim, out, C, nb, bs, KV, H, hd, window, scale, rs, s);
-  else if (q_bf16) e = chunk<bf, float>(q, pk, pv, bt_row, start, lim, out, C, nb, bs, KV, H, hd, window, scale, rs, s);
-  else if (kv_bf16) e = chunk<float, bf>(q, pk, pv, bt_row, start, lim, out, C, nb, bs, KV, H, hd, window, scale, rs, s);
-  else e = chunk<float, float>(q, pk, pv, bt_row, start, lim, out, C, nb, bs, KV, H, hd, window, scale, rs, s);
-  return (int)e;
+  const Params a{q,  pk, pv, bt_row, nullptr, out,   q_bf16, nb,
+                 bs, KV, H,  hd,     window,  start, lim,    q_bf16 && kv_bf16, scale};
+  return (int)(kv_bf16 ? launch<__nv_bfloat16, true>(a, C, s) : launch<float, true>(a, C, s));
 }

@@ -18,42 +18,60 @@ Plain versions: ``_paged_gather`` into logical order, then
 path, which reads the whole ``(B, nb*bs)`` view and masks its tail.
 They replay the kernels' arithmetic: each q·k dot and each P·V sum is
 one float32 fused multiply-add chain in order (head dimension, keys),
-the softmax sum runs over the keys in order, and masked keys enter as
-exact zeros.  Kernel and plain version therefore agree to the bit on
+each step rounded once as ``fmaf`` rounds (``core.xmath.fma``; rounding
+the float64 sum to float32 instead goes wrong about once in 2**29
+steps, which at a 32K context is about once a call), the softmax sum
+runs over the keys in order, and masked keys enter as exact zeros.  Kernel and plain version therefore agree to the bit on
 the card, which the served path needs: the faithful engine quantises
 every activation, so a last-bit difference in attention can move a
 quantiser code and grow through 24 layers.
 
 Kernels (``csrc/paged_attention.cu``) walk the block table themselves
 and read only the keys the mask admits, so the trash block and unmapped
-tail are never read; scores sit in shared memory, so the exact two-pass
-softmax of the reference is kept (no online rescaling). K2 runs one
-block per (slot, KV head) for the whole GQA group: K and then V stream
-through shared memory in tiles of whole pool blocks (``cp.async``, a
-ring of four tiles, three in flight), one chain per (head, key) for the
-scores, one per head for the softmax sum, one per (head, dim) for P·V.
-K3 runs one block per (query row, query head): a thread per key computes
-a score, one thread sums the softmax, a thread per dim runs the P·V
-chain. Bound on an H100: the bytes of the live K/V prefix (3.35 TB/s);
-at serving sizes that is well under a microsecond, and these calls are
-bound by the latency of their in-order chains (PERF.md). Shared memory
-holds K2's ``G x nb*bs`` scores (G = H / KV) and K3's ``nb*bs`` scores
-and key rows, which caps one slot's context: for K2 at 5,664 positions
-with qwen2-0.5b's heads (G = 7, head_dim 64, float32, block size 16) and
-38,208 with one query head per KV head (same head_dim, dtype and block
-size); for K3 at about 29,000. The wrappers raise past it
-(:func:`decode_smem_bytes`).
+tail are never read, and they keep the exact two-pass softmax of the
+reference (no online rescaling). One design serves both: a block of 256
+threads computes the whole GQA group (G = H / KV query heads) of one KV
+head for one query row -- a slot's token (K2, grid ``(B, KV)``) or one
+row of the chunk (K3, grid ``(C, KV)``) -- so each K / V row is read
+once per group and row. K and then V stream through shared memory in
+tiles of whole pool blocks (``cp.async``, a ring of four tiles, three in
+flight), one chain per (head, key) for the scores, one per head for the
+softmax sum, one per (head, dim) for P·V. Bound on an H100: the bytes of
+the live K/V prefix (3.35 TB/s); at serving sizes that is well under a
+microsecond, and these calls are bound by the latency of their in-order
+chains (PERF.md).
+
+Shared memory holds the group's q, a ring of four K / V tiles, and a
+region for scores and live table entries sized per launch by the table
+a block walks (:func:`group_layout`: K2 the table width, K3 blocks
+``0..lim``): every score of that table where it fits, else all that the
+tiles leave of the 227 KB a block may use, so short tables keep a small
+footprint (two blocks an SM at the served shapes).  Each block decides
+on the device, from its own live length, how to use the region: where
+its ``G x L`` scores and live table entries fit (L up to 5,668 keys with
+qwen2-0.5b's heads, G = 7, head_dim 64, float32, block size 16; 6,852 in
+bf16), it keeps every score; past that it keeps one tile of scores and
+recomputes them with the same chains in three passes (max, sum,
+weights), which gives the same bits. So neither kernel caps the context:
+what remains is head_dim <= 256 (one thread per dim in the P·V chains),
+a layout whose four tiles fit one block (where the tiles are float32
+rows of odd stride, i.e. head_dim other than 32, 64 and 128: head_dim up
+to 219 with G = 7), and a table of at most :func:`max_table_blocks`
+entries (39,764 blocks, 636,224 positions, at qwen2-0.5b's heads in
+float32); the wrappers raise past any of them.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.xmath import fma
+
 from .build import LaunchCounter, check, library
-from .ref import fma
 
 __all__ = [
     "TRASH_BLOCK",
@@ -70,14 +88,14 @@ __all__ = [
 
 TRASH_BLOCK = 0
 _NEG = -1e30
-_SMEM_LIMIT = 227 * 1024
 decode_counter = LaunchCounter("paged_decode_attention")
 chunk_counter = LaunchCounter("paged_chunk_attention")
 
 
 def _dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``sum_d a[..., d] * b[..., d]`` over the last axis as the kernels
-    compute it: one float32 fused multiply-add chain over d in order."""
+    compute it: one float32 fused multiply-add chain over d in order,
+    each step rounded once."""
     acc = torch.zeros(torch.broadcast_shapes(a.shape[:-1], b.shape[:-1]),
                       dtype=torch.float32, device=a.device)
     for d in range(a.shape[-1]):
@@ -218,20 +236,79 @@ def _check_pools(who, q, pool_k, pool_v):
     return need
 
 
-def decode_smem_bytes(g, hd, nb, bs, vec, kv_bytes):
-    """Shared memory of one K2 block (``decode_layout`` in the CUDA
-    source): the group's q, ``g`` rows of scores over ``nb * bs`` keys,
-    ``g`` normalisers, ``nb`` block-table entries and four tiles of whole
-    pool blocks (64 keys, or one block when ``bs`` is larger), in the pool
-    dtype with 16 B of row padding (``vec``) or in float32 with an odd row
-    stride."""
-    def a16(n):
-        return -(-n // 16) * 16
-    lp = -(-(nb * bs) // 32) * 32 + 4
-    stage_keys = (64 // bs if bs < 64 else 1) * bs
+MAX_SMEM = 232_448  # what one block may use on an H100
+THREADS = 256  # per block; one thread per dim in the P·V chains
+STAGE_KEYS = 64  # keys per staged tile, in whole pool blocks
+NBUF = 4  # staged tiles
+
+
+def _a16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def score_stride(n: int) -> int:
+    """Row stride of a score row of ``n`` keys: at least ``n``, = 4 mod
+    32 (``score_stride`` in the CUDA source)."""
+    return (n + 27) // 32 * 32 + 4
+
+
+class GroupLayout(NamedTuple):
+    """Shared memory of one K2 / K3 block (``group_layout`` in the CUDA
+    source): the group's q in float32, G normalisers and maxima, then the
+    region (scores and live block-table entries), then ``NBUF`` tiles of
+    ``stage_keys`` pool rows with stride ``ld`` (the pool dtype with 16 B
+    of row padding on vector tiles, else float32 with an odd stride).
+    ``room`` is what the tiles leave of ``MAX_SMEM``.  The region holds
+    every score row of the table a block walks (``nb`` entries) and the
+    entries where they fit in ``room``, else it takes ``room``; ``ok`` is
+    False where ``room`` cannot hold one tile's scores and the entries."""
+
+    stage_keys: int
+    ld: int
+    tkp: int
+    tile_bytes: int
+    tile_sc_bytes: int
+    region: int
+    room: int
+    region_bytes: int
+    total: int
+    ok: bool
+
+
+def group_layout(g: int, hd: int, bs: int, vec: bool, kv_bytes: int, nb: int) -> GroupLayout:
+    stage_keys = (STAGE_KEYS // bs if bs < STAGE_KEYS else 1) * bs
     ld, elt = (hd + 16 // kv_bytes, kv_bytes) if vec else (hd | 1, 4)
-    tiles = a16(a16(4 * g * hd) + 4 * g * lp + 4 * g + 4 * nb)
-    return tiles + 4 * a16(stage_keys * ld * elt)
+    tkp = score_stride(stage_keys + 3)
+    tile_bytes = _a16(stage_keys * ld * elt)
+    tile_sc_bytes = _a16(4 * g * tkp)
+    region = _a16(_a16(4 * g * hd) + 8 * g)
+    fixed = region + NBUF * tile_bytes
+    room = max(MAX_SMEM - fixed, 0) // 16 * 16
+    entries = _a16(4 * nb)
+    least = tile_sc_bytes + entries
+    ok = least <= room
+    region_bytes = max(least, min(_a16(4 * g * score_stride(nb * bs)) + entries, room)) if ok else 0
+    return GroupLayout(stage_keys, ld, tkp, tile_bytes, tile_sc_bytes, region, room,
+                       region_bytes, region + region_bytes + NBUF * tile_bytes, ok)
+
+
+def _vec(hd: int, pool_k: torch.Tensor, pool_v: torch.Tensor) -> bool:
+    """Vector tiles: head_dim 32 / 64 / 128 on 16-B aligned pools."""
+    return hd in (32, 64, 128) and pool_k.data_ptr() % 16 == 0 and pool_v.data_ptr() % 16 == 0
+
+
+def max_table_blocks(lay: GroupLayout) -> int:
+    """Widest block table a block can stage beside one tile's scores."""
+    return max(0, (lay.room - lay.tile_sc_bytes) // 4)
+
+
+def _check_layout(need, g, hd, bs, nb, vec, kv_bytes):
+    need(hd <= THREADS, f"head_dim {hd} over {THREADS} (one thread per dim in the P·V chains)")
+    lay = group_layout(g, hd, bs, vec, kv_bytes, 1)
+    need(lay.ok, f"{g} query heads of head_dim {hd} with block size {bs} do not fit one "
+         f"block's shared memory")
+    need(nb <= max_table_blocks(lay),
+         f"block table of {nb} entries over the {max_table_blocks(lay)} a block can stage")
 
 
 def paged_decode_attention_cuda(q, pool_k, pool_v, block_tables, pos, *, window=0):
@@ -247,11 +324,7 @@ def paged_decode_attention_cuda(q, pool_k, pool_v, block_tables, pos, *, window=
     need(tuple(pos.shape) == (b,), "pos must be (B,)")
     _, bs, kv, _ = pool_k.shape
     nb = block_tables.shape[1]
-    need(hd <= 256, f"head_dim {hd} over 256 (one thread per dim in the P·V chains)")
-    vec = hd in (32, 64, 128) and pool_k.data_ptr() % 16 == 0 and pool_v.data_ptr() % 16 == 0
-    smem = decode_smem_bytes(h // kv, hd, nb, bs, vec, pool_k.element_size())
-    need(smem <= _SMEM_LIMIT, f"context {nb * bs} too long: {h // kv} heads' scores and the "
-         f"staged tiles take {smem} B of shared memory, over {_SMEM_LIMIT}")
+    _check_layout(need, h // kv, hd, bs, nb, _vec(hd, pool_k, pool_v), pool_k.element_size())
     out = torch.empty((b, h, hd), dtype=pool_k.dtype, device=q.device)
     if b == 0:
         return out
@@ -282,8 +355,7 @@ def paged_chunk_attention_cuda(q, pool_k, pool_v, bt_row, start, n_valid, *, win
     nb = bt_row.shape[0]
     start, n_valid = int(start), int(n_valid)
     lim = min(max(start + n_valid - 1, 0) // bs, nb - 1)
-    smem = 4 * (hd + 2 * nb * bs + 6)
-    need(smem <= _SMEM_LIMIT, f"context {nb * bs} too long for the shared-memory scores")
+    _check_layout(need, h // kv, hd, bs, nb, _vec(hd, pool_k, pool_v), pool_k.element_size())
     out = torch.empty((1, c, h, hd), dtype=pool_k.dtype, device=q.device)
     if c == 0:
         return out

@@ -119,6 +119,188 @@ def test_paged_decode_kernel_served_heads_bitwise(card, dtype, window):
         assert torch.equal(solo[0], y[i]), i
 
 
+# --- K2 / K3 at qwen2-0.5b's heads over long tables ---
+
+SERVED_HEADS = dict(h=14, kv=2, hd=64, bs=16)
+
+
+def _served_pools(card, dtype, n_blocks, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    shape = (n_blocks, SERVED_HEADS["bs"], SERVED_HEADS["kv"], SERVED_HEADS["hd"])
+    pk, pv = (torch.randn(shape, generator=g, device=card).to(dtype) for _ in range(2))
+    return pk, pv, g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 24])
+def test_paged_chunk_kernel_served_heads_bitwise(card, dtype, window):
+    """K3 at qwen2-0.5b's head layout, 32-row chunks (all valid, and a
+    ragged last chunk of 24), bit-equal to its plain version on the valid
+    rows: starting at 0, on both sides of a block edge, at 37 and at
+    4,064 (a 4K prompt's last chunk; every score kept) in a 256-block
+    table, and at 32,736 (a 32K prompt's last chunk; scores recomputed
+    per pass) in a 2,048-block table.  One launch per call."""
+    h, hd, c = SERVED_HEADS["h"], SERVED_HEADS["hd"], 32
+    for nb, starts in ((256, (0, 15, 16, 37, 4064)), (2048, (32736,))):
+        pk, pv, g = _served_pools(card, dtype, nb + 1, nb + window)
+        bt_row = (torch.randperm(nb, generator=g, device=card) + 1).to(torch.int32)
+        q = torch.randn((1, c, h, hd), generator=g, device=card).to(dtype)
+        for start in starts:
+            for n_valid in (c, 24):
+                before = pa.chunk_counter.count
+                y = ops.paged_chunk_attention(q, pk, pv, bt_row, start, n_valid, window=window)
+                assert pa.chunk_counter.count == before + 1
+                yp = pa.paged_chunk_attention_ref(q, pk, pv, bt_row, start, n_valid,
+                                                  window=window)
+                torch.cuda.synchronize()
+                a, r = y[0, :n_valid], yp[0, :n_valid]
+                assert torch.equal(a, r), (nb, start, n_valid, float((a.float() - r.float()).abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 24])
+def test_paged_decode_kernel_wide_table_bitwise(card, dtype, window):
+    """K2 in a 2,048-block table (qwen2-0.5b's 32,768 positions at block
+    size 16): short positions keep every score in shared memory as at a
+    16-block table; pos 6,143 lies past the old 5,664-position cap and
+    32,767 is the last position, where the scores are recomputed per
+    pass.  Bit-equal to the plain version, and each slot alone gives what
+    it gives in the batch."""
+    h, hd, bs, nb = SERVED_HEADS["h"], SERVED_HEADS["hd"], SERVED_HEADS["bs"], 2048
+    pos_list = [0, 17, 255, 6143, 32767]
+    b = len(pos_list)
+    pk, pv, g = _served_pools(card, dtype, nb + 1, 7 + window)
+    bt = torch.stack([torch.randperm(nb, generator=g, device=card) + 1 for _ in range(b)])
+    bt = bt.to(torch.int32)
+    for i, p in enumerate(pos_list):  # unmapped tail entries point at the trash block
+        bt[i, p // bs + 1:] = 0
+    bt = bt.contiguous()
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=card)
+    q = torch.randn((b, h, hd), generator=g, device=card)
+    y = ops.paged_decode_attention(q, pk, pv, bt, pos, window=window)
+    yp = pa.paged_decode_attention_ref(q, pk, pv, bt, pos, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(y, yp), float((y.float() - yp.float()).abs().max())
+    for i in range(b):
+        solo = pa.paged_decode_attention_cuda(q[i:i + 1].contiguous(), pk, pv,
+                                              bt[i:i + 1].contiguous(), pos[i:i + 1].contiguous(),
+                                              window=window)
+        torch.cuda.synchronize()
+        assert torch.equal(solo[0], y[i]), pos_list[i]
+
+
+_POISON_CU = r"""
+#include <cuda_runtime.h>
+__global__ void poison_kernel(float v, int n) {
+  extern __shared__ float s[];
+  for (int i = threadIdx.x; i < n; i += blockDim.x) s[i] = v;
+}
+extern "C" int poison_launch(float v, cudaStream_t st) {
+  const int bytes = 232448;  // all a block may use on an H100
+  cudaFuncSetAttribute(poison_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  poison_kernel<<<132 * 4, 1024, bytes, st>>>(v, bytes / 4);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def poison(card, tmp_path_factory):
+    """Fill every SM's shared memory with one float value (a throwaway
+    kernel built with nvcc), so that a kernel launched next which reads
+    shared memory it did not write reads that value."""
+    import ctypes
+    import subprocess
+
+    from repro_torch.kernels import build
+
+    d = tmp_path_factory.mktemp("poison")
+    (d / "poison.cu").write_text(_POISON_CU)
+    subprocess.run([build._nvcc(), build.ARCH, "-shared", "-Xcompiler", "-fPIC", "-o",
+                    str(d / "poison.so"), str(d / "poison.cu")], check=True)
+    lib = ctypes.CDLL(str(d / "poison.so"))
+    lib.poison_launch.argtypes = [ctypes.c_float, ctypes.c_void_p]
+
+    def fill(v):
+        assert lib.poison_launch(v, torch.cuda.current_stream().cuda_stream) == 0
+
+    return fill
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 24])
+def test_paged_kernels_read_only_what_they_write(card, poison, dtype, window):
+    """K2 / K3 read no shared memory they did not write: with every SM's
+    shared memory filled with NaN, +1e30 or -1e30 before each launch,
+    every output equals the unpoisoned one bit for bit, on the path that
+    keeps the scores (short positions, a 4K chunk) and on the one that
+    recomputes them (pos 6,143 and 32,767; chunks at 6,000 and 32,736) in
+    a 2,048-block table, and in a 16-block table (the served shape)."""
+    h, hd, bs, nb = SERVED_HEADS["h"], SERVED_HEADS["hd"], SERVED_HEADS["bs"], 2048
+    pk, pv, g = _served_pools(card, dtype, nb + 1, 11 + window)
+    bt = (torch.randperm(nb, generator=g, device=card) + 1).to(torch.int32)
+    btd = torch.stack([bt] * 4).contiguous()
+    q = torch.randn((4, h, hd), generator=g, device=card).to(dtype)
+    qc = torch.randn((1, 32, h, hd), generator=g, device=card).to(dtype)
+    short = torch.randint(0, 256, (4,), generator=g, device=card).to(torch.int32)
+    calls = {
+        "K2 short, 16-block table": lambda: pa.paged_decode_attention_cuda(
+            q, pk, pv, btd[:, :16].contiguous(), short, window=window),
+        "K2 short": lambda: pa.paged_decode_attention_cuda(q, pk, pv, btd, short, window=window),
+        "K3 start 37": lambda: pa.paged_chunk_attention_cuda(qc, pk, pv, bt, 37, 32, window=window),
+        "K3 start 4064": lambda: pa.paged_chunk_attention_cuda(qc, pk, pv, bt, 4064, 32,
+                                                                window=window),
+        "K3 start 6000": lambda: pa.paged_chunk_attention_cuda(qc, pk, pv, bt, 6000, 32,
+                                                                window=window),
+        "K3 start 32736": lambda: pa.paged_chunk_attention_cuda(qc, pk, pv, bt, 32736, 32,
+                                                                 window=window),
+    }
+    for p in (6143, 32767):
+        pos = torch.full((4,), p, dtype=torch.int32, device=card)
+        calls[f"K2 pos {p}"] = (lambda pos=pos: pa.paged_decode_attention_cuda(
+            q, pk, pv, btd, pos, window=window))
+    for name, call in calls.items():
+        want = call().clone()
+        for v in (float("nan"), 1e30, -1e30):
+            poison(v)
+            got = call()
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (name, v)
+
+
+def test_serveloop_max_len_invariant_on_card(card):
+    """qwen2-smoke through the faithful ServeLoop on the card (K1, K2,
+    K3) at ``max_len`` 64 and 2,048: block tables of 8 and 256 entries,
+    equal tokens, bit-equal logits."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.core import MemPolicy
+    from repro_torch.models import init_params
+    from repro_torch.serve import Request, ServeConfig, ServeLoop
+
+    cfg = get_smoke("qwen2-0.5b")
+    params = init_params(cfg, seed=0, device=card)
+    policy = MemPolicy(default=DPEConfig(
+        input_spec=INT8, weight_spec=INT8, array_size=(32, 32), mode="faithful",
+        adc_mode="dynamic_row", backend="auto"))
+    rng = np.random.default_rng(15)
+    reqs = [Request(i, rng.integers(0, cfg.vocab, n).astype(np.int32), gen)
+            for i, (n, gen) in enumerate([(11, 4), (5, 3), (19, 3)])]
+    sc = ServeConfig(policy=policy, slots=2, max_len=64, prefill_chunk=8, block_size=8,
+                     compute_dtype=torch.float32, device=card, collect_logits=True)
+    short = ServeLoop(params, cfg, sc)
+    long = ServeLoop(params, cfg, sc.replace(max_len=2048), programmed=short.programmed)
+    ops.reset_counters()
+    a = short.run(reqs)
+    b = long.run(reqs)
+    assert ops.COUNTERS["paged_decode_attention"].count > 0
+    assert ops.COUNTERS["paged_chunk_attention"].count > 0
+    for ra, rb in zip(a.results, b.results):
+        assert ra.tokens == rb.tokens and len(ra.logits) == len(rb.logits) > 0
+        assert all(np.array_equal(x, y) for x, y in zip(ra.logits, rb.logits))
+
+
 def _programmed(card, cfg, k, n, seed):
     g = torch.Generator(device=card).manual_seed(seed)
     w = torch.randn((k, n), generator=g, device=card) * k**-0.5
