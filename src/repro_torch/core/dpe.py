@@ -23,10 +23,12 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops as _kops
 
+from .drift import drift_now
 from .engine import DPEConfig
 from .quant import adc_quantize, block_scale, dac_quantize, div, quantize
 from .prng import fold_in
@@ -52,7 +54,8 @@ class PreparedWeight(NamedTuple):
 
     slices: (Sw, Kp, Np) float32 — noisy slice values (analog domain).
     scale:  (nk, nn)     float32 — per-block quant / pre-alignment scale.
-    t_prog: programming timestamp (metadata; drift is not ported).
+    t_prog: device-clock programming time, the drift reference (None:
+            untimed state, which never drifts).
     """
 
     slices: torch.Tensor
@@ -62,7 +65,8 @@ class PreparedWeight(NamedTuple):
 
 class FoldedWeight(NamedTuple):
     """Fast-mode programmed state: the digitally folded noisy effective
-    weight (Kp, Np) in ``cfg.store_dtype``."""
+    weight (Kp, Np) in ``cfg.store_dtype``; ``t_prog`` as on
+    :class:`PreparedWeight`."""
 
     w_eff: torch.Tensor
     t_prog: float | None = None
@@ -338,39 +342,65 @@ def range_rows(cfg: DPEConfig, m: int) -> int:
     return 128 if cfg.backend in ("auto", "pallas") else max(m, 1)
 
 
+def _drift_factor(cfg: DPEConfig, t_prog, t_now=None):
+    """The float32 decay factor of state programmed at ``t_prog`` and
+    read at ``t_now`` (default: the published :func:`drift_now`), or
+    None where drift does not apply (no model, untimed state, no clock):
+    then nothing is multiplied, so drift off is bitwise off."""
+    if cfg.drift is None or t_prog is None:
+        return None
+    if t_now is None:
+        t_now = drift_now()
+    if t_now is None:
+        return None
+    return cfg.drift.factor(np.float32(t_now) - np.float32(t_prog))
+
+
 def dpe_matmul_prepared(
     x: torch.Tensor,
     pw: PreparedWeight,
     n: int,
     cfg: DPEConfig,
     kernels: bool = True,
+    t_now=None,
 ) -> torch.Tensor:
     """``x @ w`` through an already-programmed weight (any leading dims).
-    ``kernels=False`` is the explicit plain-version override."""
+    Drift multiplies every slice value by its factor before the analog
+    products: inside K1 as the slices are read, or on the slice stack for
+    the plain engine.  ``kernels=False`` is the explicit plain-version
+    override."""
     lead = x.shape[:-1]
     xm = x.reshape(-1, x.shape[-1])
+    f = _drift_factor(cfg, pw.t_prog, t_now)
     if resolve_backend(cfg) == "fused":
         y = _kops.fused_sliced_matmul(
             xm.to(torch.float32), pw.slices, pw.scale,
             input_spec=cfg.input_spec, weight_spec=cfg.weight_spec,
             array_size=cfg.array_size, rdac=cfg.rdac, radc=cfg.radc,
-            adc_mode=cfg.adc_mode, bm=range_rows(cfg, xm.shape[0]), kernels=kernels,
+            adc_mode=cfg.adc_mode, bm=range_rows(cfg, xm.shape[0]),
+            drift=1.0 if f is None else f, kernels=kernels,
         )
         return y[:, :n].reshape(*lead, n)
+    slices = pw.slices if f is None else pw.slices * torch.tensor(f, device=x.device)
     xs, sx = prepare_input(xm, cfg)
-    y = _fast_matmul(xs, sx, pw.slices, pw.scale, cfg)
+    y = _fast_matmul(xs, sx, slices, pw.scale, cfg)
     return y[:, :n].reshape(*lead, n)
 
 
 def dpe_matmul_folded(
-    x: torch.Tensor, fw: FoldedWeight, n: int, cfg: DPEConfig
+    x: torch.Tensor, fw: FoldedWeight, n: int, cfg: DPEConfig, t_now=None
 ) -> torch.Tensor:
-    """Fast-mode ``x @ w`` through an already-folded noisy weight.
-    ``FoldedWeight`` is a plain product (no kernel)."""
+    """Fast-mode ``x @ w`` through an already-folded noisy weight; drift
+    scales ``w_eff`` in its store dtype (the fold is linear in the slice
+    values).  ``FoldedWeight`` is a plain product (no kernel)."""
     lead = x.shape[:-1]
     xm = x.reshape(-1, x.shape[-1])
-    x_deq = fake_quant_input(xm, cfg).to(fw.w_eff.dtype)
-    y = _dot(x_deq, fw.w_eff)[:, :n]
+    w_eff = fw.w_eff
+    f = _drift_factor(cfg, fw.t_prog, t_now)
+    if f is not None:
+        w_eff = w_eff * torch.tensor(f, device=x.device).to(w_eff.dtype)
+    x_deq = fake_quant_input(xm, cfg).to(w_eff.dtype)
+    y = _dot(x_deq, w_eff)[:, :n]
     return y.reshape(*lead, n).to(torch.float32)
 
 
@@ -382,7 +412,8 @@ def program_weight(
     kernels: bool = True,
 ) -> PreparedWeight | FoldedWeight | None:
     """Program one weight matrix for ``cfg``'s mode: ``PreparedWeight``
-    (faithful), ``FoldedWeight`` (fast) or ``None`` (digital).
+    (faithful), ``FoldedWeight`` (fast) or ``None`` (digital), stamped
+    with the device-clock time ``t_prog`` (the drift reference).
     Programming is a pure function of ``(w, cfg, key)``."""
     if cfg is None or cfg.mode == "digital":
         return None

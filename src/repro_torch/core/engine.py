@@ -2,8 +2,9 @@
 ``repro/core/engine.py``).
 
 ``DPEConfig`` is frozen and hashable and is stored per layer, which is
-what makes layer-wise mixed precision work.  Conductance drift is not
-ported yet: a non-``None`` ``drift`` raises ``NotImplementedError``.
+what makes layer-wise mixed precision work.  ``drift`` (a
+:class:`~repro_torch.core.drift.DriftModel`, or ``None``) ages the
+programmed state by the device clock the serve loop publishes.
 """
 from __future__ import annotations
 
@@ -72,10 +73,6 @@ class DPEConfig:
                 )
         if self.hgs <= self.lgs:
             raise ValueError("need HGS > LGS")
-        if self.drift is not None:
-            raise NotImplementedError(
-                "conductance drift is not ported to repro_torch yet"
-            )
 
     @property
     def cv(self) -> float:

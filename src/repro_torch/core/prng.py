@@ -11,9 +11,10 @@ bit.  Bulk draws (:func:`random_bits`, :func:`uniform`, :func:`normal`,
 elements, so a draw for a 136 M-element weight never holds more than a
 few chunk-sized temporaries.
 
-``random_bits``, ``uniform`` and ``normal`` equal JAX's bit for bit
-(``tests/test_torch_prng.py``): ``normal`` is ``sqrt(2) * erf_inv(u)``
-with XLA's float32 ``erf_inv`` (:mod:`.xmath`).  Every step is an
+``random_bits``, ``uniform``, ``normal`` and ``gumbel`` equal JAX's bit
+for bit (``tests/test_torch_prng.py``, ``tests/test_torch_sampling.py``):
+``normal`` is ``sqrt(2) * erf_inv(u)`` with XLA's float32 ``erf_inv``
+and ``gumbel`` is ``-log(-log(u))`` with its ``log`` (:mod:`.xmath`).  Every step is an
 integer or an IEEE float32 / float64 operation, so the card draws the
 same bits as the CPU.
 """
@@ -24,7 +25,7 @@ import math
 import numpy as np
 import torch
 
-from .xmath import erf_inv, fma
+from .xmath import erf_inv, fma, log
 
 __all__ = [
     "PRNGKey",
@@ -33,6 +34,8 @@ __all__ = [
     "random_bits",
     "uniform",
     "normal",
+    "gumbel",
+    "categorical",
     "permutation",
     "choice",
 ]
@@ -166,6 +169,24 @@ def normal(key, shape, device="cpu") -> torch.Tensor:
         u = _uniform_chunk(_bits(k1, k2, c0, c1, device), lo, hi)
         out[c0:c1] = sqrt2 * erf_inv(u)
     return out.reshape(shape)
+
+
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def gumbel(key, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, float32)`` (its default ``"low"``
+    mode): ``-log(-log(u))`` with ``u`` uniform on ``[tiny, 1)`` and
+    XLA's float32 ``log``."""
+    u = uniform(key, shape, minval=_TINY, maxval=1.0, device=device)
+    return -log(-log(u))
+
+
+def categorical(key, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` over the last axis: the
+    first index of ``max(logits + gumbel(key, logits.shape))``."""
+    g = gumbel(key, logits.shape, device=logits.device)
+    return torch.argmax(g + logits.float(), dim=-1)
 
 
 def permutation(key, n: int, device="cpu") -> torch.Tensor:

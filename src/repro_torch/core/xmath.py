@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["fma", "log", "log1p", "exp", "erf_inv"]
+__all__ = ["fma", "log", "log1p", "exp", "erf_inv", "sum_last", "cumsum_last"]
 
 
 def _f(v: float) -> float:
@@ -36,23 +36,40 @@ def fma(a: torch.Tensor, b, c) -> torch.Tensor:
     is rounded first to float64 and then to float32.  That second
     rounding goes wrong only where the first lands exactly halfway
     between two float32 values without being exact; there the float64
-    sum is moved one float64 ulp towards the exact sum (its error by
-    Knuth's two-sum), which then rounds correctly.  Results in the
-    float32 normal range; the operands broadcast as ``torch.addcmul``'s."""
+    sum is moved one float64 ulp towards the exact sum, which then rounds
+    correctly.  On the CPU the correction is computed for the halfway
+    elements of a tensor only; on a card it is a ``torch.where`` over the
+    whole tensor, so a call never waits for the device.  Results in the float32
+    normal range; the operands broadcast as ``torch.addcmul``'s."""
     dev = a.device
     a64 = a.double()
     b64 = torch.as_tensor(b, dtype=torch.float64, device=dev)
     c64 = torch.as_tensor(c, dtype=torch.float64, device=dev)
     s = torch.addcmul(c64, a64, b64)
-    bits = s.view(torch.int64)
-    tie = (bits & _LOW29) == _HALF29
-    if bool(tie.any()):
-        p = a64 * b64
-        bb = s - p
-        err = (p - (s - bb)) + (c64 - bb)
-        step = torch.where((err > 0) == (s > 0), 1, -1)
-        s = torch.where(tie & (err != 0), bits + step, bits).view(torch.float64)
-    return s.float()
+    tie = halfway(s)
+    if dev.type == "cpu" and s.dim():
+        idx = tie.nonzero(as_tuple=True)
+        if idx[0].numel():
+            pick = lambda t: t.expand_as(s)[idx]  # noqa: E731
+            s[idx] = _towards_exact(s[idx], pick(a64), pick(b64), pick(c64))
+        return s.float()
+    return torch.where(tie, _towards_exact(s, a64, b64, c64), s).float()
+
+
+def _towards_exact(s, a, b, c):
+    """``s = a*b + c`` rounded to float64, moved one ulp towards the
+    exact sum where it is inexact (its error by Knuth's two-sum)."""
+    p = a * b
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    away = torch.copysign(torch.full_like(s, float("inf")), err)
+    return torch.where(err != 0, torch.nextafter(s, away), s)
+
+
+def halfway(s: torch.Tensor) -> torch.Tensor:
+    """Where the float64 ``s`` lies exactly halfway between two float32
+    values (its 29 low mantissa bits are ``1 << 28``)."""
+    return (s.view(torch.int64) & _LOW29) == _HALF29
 
 
 # the 29 low mantissa bits that float64 has and float32 has not, and
@@ -151,3 +168,46 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     for i in range(1, len(_ERFINV_LT5)):
         p = fma(p, w, coef(i))
     return p * x
+
+
+def _seq_last(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis, in order from 0.0."""
+    s = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    for j in range(x.shape[-1]):
+        s = s + x[..., j]
+    return s
+
+
+def sum_last(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU float32 ``sum`` over the last axis: windows of 32 summed
+    in order (the axis zero-padded to whole windows, half the padding in
+    front), level by level until at most 32 partial sums are left, which
+    are summed in order."""
+    while x.shape[-1] > 32:
+        n = x.shape[-1]
+        m = -(-n // 32)
+        pad = m * 32 - n
+        x = _seq_last(torch.nn.functional.pad(x, (pad // 2, pad - pad // 2)).reshape(
+            *x.shape[:-1], m, 32))
+    return _seq_last(x)
+
+
+def _scan16(x: torch.Tensor) -> torch.Tensor:
+    out = x.clone()
+    for j in range(1, x.shape[-1]):
+        out[..., j] = out[..., j - 1] + x[..., j]
+    return out
+
+
+def cumsum_last(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU float32 ``cumsum`` over the last axis: rows of 16
+    scanned in order (the axis zero-padded to whole rows), the rows'
+    totals scanned the same way, and each row's exclusive prefix added to
+    it; at most 16 values are scanned in order."""
+    n = x.shape[-1]
+    if n <= 16:
+        return _scan16(x)
+    m = -(-n // 16)
+    rows = _scan16(torch.nn.functional.pad(x, (0, m * 16 - n)).reshape(*x.shape[:-1], m, 16))
+    excl = torch.nn.functional.pad(cumsum_last(rows[..., 15])[..., :-1], (1, 0))
+    return (rows + excl[..., None]).reshape(*x.shape[:-1], m * 16)[..., :n]

@@ -82,6 +82,17 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// A loop bound the compiler cannot see through.  A warp-per-head running
+// max written as this kernel's lane-strided loops (t = lane; t < n;
+// t += 32) read past n on the card (lanes 0-3 a pass more) with the bound
+// visible, with or without an unroll pragma, and never with the bound
+// behind this move (tools/warp_max_variants.py, nvcc 12.8); the loops
+// below keep their bound behind it.
+__device__ __forceinline__ int opaque(int v) {
+  asm volatile("mov.b32 %0, %1;" : "=r"(v) : "r"(v));
+  return v;
+}
+
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int CHAINS = 2;       // P.V chains (query heads) a thread carries per pass
@@ -321,14 +332,15 @@ __device__ __forceinline__ void run_group(const Params& a, const Layout& lay, in
   // KEEP: the exact two-pass softmax over the scores of keys lo..hi
   auto softmax = [&]() {
     const int warp = tid >> 5, lane = tid & 31;
+    const int n = opaque(L);
     for (int h = warp; h < G; h += WARPS) {
       float* row = sc + h * sld + off;
       float m = -INFINITY;
 #pragma unroll 4
-      for (int t = lane; t < L; t += 32) m = fmaxf(m, row[t]);
+      for (int t = lane; t < n; t += 32) m = fmaxf(m, row[t]);
       m = warp_max(m);
 #pragma unroll 4
-      for (int t = lane; t < L; t += 32) row[t] = expf(__fadd_rn(row[t], -m));
+      for (int t = lane; t < n; t += 32) row[t] = expf(__fadd_rn(row[t], -m));
     }
     __syncthreads();
     for (int h = tid; h < G; h += THREADS) {  // l in key order, G chains side by side
@@ -357,7 +369,7 @@ __device__ __forceinline__ void run_group(const Params& a, const Layout& lay, in
       const float l = ls[h];
       float* row = sc + h * sld + off;
 #pragma unroll 4
-      for (int t = lane; t < L; t += 32) row[t] = to_f(from_f<TKV>(__fdiv_rn(row[t], l)));
+      for (int t = lane; t < n; t += 32) row[t] = to_f(from_f<TKV>(__fdiv_rn(row[t], l)));
     }
     __syncthreads();
   };

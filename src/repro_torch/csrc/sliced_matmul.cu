@@ -47,13 +47,14 @@ int run(const dpe::Args& A, bool staged, int tile, const int* ip, const float* f
 
 }  // namespace
 
-// K1: raw x (M, K), leading dimension ldx.
+// K1: raw x (M, K), leading dimension ldx; every slice value times
+// `drift` (1: the stored values).
 extern "C" int fused_sliced_matmul_launch(const float* x, int ldx, int M, int K,
                                           const float* ws, const float* sw, float* part,
                                           float* out, int* tickets, float* scratch, int Kp,
                                           int Np, int tile, const int* ip, const float* fp,
-                                          const int* lp, cudaStream_t stream) {
-  dpe::Args A{x, ldx, K, nullptr, nullptr, ws, sw, part, out, tickets, scratch, M, Kp, Np};
+                                          const int* lp, float drift, cudaStream_t stream) {
+  dpe::Args A{x, ldx, K, nullptr, nullptr, ws, sw, part, out, tickets, scratch, M, Kp, Np, drift};
   return run(A, false, tile, ip, fp, lp, stream);
 }
 
@@ -63,7 +64,7 @@ extern "C" int staged_sliced_matmul_launch(const float* xs, const float* sx, int
                                            float* out, int* tickets, float* scratch, int Kp,
                                            int Np, int tile, const int* ip, const float* fp,
                                            const int* lp, cudaStream_t stream) {
-  dpe::Args A{nullptr, 0, 0, xs, sx, ws, sw, part, out, tickets, scratch, M, Kp, Np};
+  dpe::Args A{nullptr, 0, 0, xs, sx, ws, sw, part, out, tickets, scratch, M, Kp, Np, 1.f};
   return run(A, true, tile, ip, fp, lp, stream);
 }
 

@@ -79,6 +79,7 @@
 #include <stdint.h>
 
 #include <mutex>
+#include <type_traits>
 
 namespace dpe {
 
@@ -112,6 +113,7 @@ struct Args {
   float* scratch;   // range-pass maxima (units, nk, nn, csize, Sx), or the
                     // decode pairs (nk, nn, Sx, MR, Sw, T)
   int M, Kp, Np;
+  float drift;      // conductance decay: each slice value times it as loaded
 };
 
 // Launch geometry, computed by kernels/sliced_matmul.py::plan_k1.
@@ -428,25 +430,36 @@ sliced_matmul_kernel(const __grid_constant__ CUtensorMap wmap, Args A, bool stag
       for (int r = 0; r < RW; ++r)
 #pragma unroll
         for (int c = 0; c < CW; ++c) p[i][r][c] = 0.f;
+    // a drifted call (drift != 1) rounds each slice value times the
+    // factor once as it is loaded, outside the chain (no contraction);
+    // drift == 1 runs the chains on the stored values
+    auto chains = [&](auto drifted) {
 #pragma unroll 1
-    for (int g = 0; g < (chain_warp ? 4 : 0); ++g) {
-      if (first) mbar_wait(&wbar[g], 0);
-      const float* wk = W + g * (T / 4) * C + col0;
-      const float* xk = X + g * (T / 4) * L.xs + r0 * SX;
+      for (int g = 0; g < (chain_warp ? 4 : 0); ++g) {
+        if (first) mbar_wait(&wbar[g], 0);
+        const float* wk = W + g * (T / 4) * C + col0;
+        const float* xk = X + g * (T / 4) * L.xs + r0 * SX;
 #pragma unroll UNROLL
-      for (int k = 0; k < T / 4; ++k) {
-        float w[CW];
-        load_vec<CW>(w, wk + k * C);
-        float xv[RW * SX];
-        load_vec<RW * SX>(xv, xk + k * L.xs);
+        for (int k = 0; k < T / 4; ++k) {
+          float w[CW];
+          load_vec<CW>(w, wk + k * C);
+          if constexpr (decltype(drifted)::value) {
 #pragma unroll
-        for (int r = 0; r < RW; ++r)
+            for (int c = 0; c < CW; ++c) w[c] = __fmul_rn(w[c], A.drift);
+          }
+          float xv[RW * SX];
+          load_vec<RW * SX>(xv, xk + k * L.xs);
 #pragma unroll
-          for (int i = 0; i < SX; ++i)
+          for (int r = 0; r < RW; ++r)
 #pragma unroll
-            for (int c = 0; c < CW; ++c) p[i][r][c] = fmaf(xv[r * SX + i], w[c], p[i][r][c]);
+            for (int i = 0; i < SX; ++i)
+#pragma unroll
+              for (int c = 0; c < CW; ++c) p[i][r][c] = fmaf(xv[r * SX + i], w[c], p[i][r][c]);
+        }
       }
-    }
+    };
+    if (A.drift == 1.f) chains(std::false_type{});
+    else chains(std::true_type{});
     first = false;
 
     if (L.gx) {

@@ -66,13 +66,15 @@ def fused_sliced_matmul(
     radc: int,
     adc_mode: str,
     bm: int = 128,
+    drift: float = 1.0,
     kernels: bool = True,
 ) -> torch.Tensor:
     """Fused faithful DPE matmul (K1): raw x (M, K) -> (M, Np) float32;
-    ``bm`` rows share a ``dynamic`` ADC range."""
+    ``bm`` rows share a ``dynamic`` ADC range; the slices are read times
+    the float32 conductance ``drift`` factor."""
     kw = dict(
         input_spec=input_spec, weight_spec=weight_spec, array_size=array_size,
-        rdac=rdac, radc=radc, adc_mode=adc_mode, bm=bm,
+        rdac=rdac, radc=radc, adc_mode=adc_mode, bm=bm, drift=drift,
     )
     if _use_kernel(x, kernels):
         return _sm.fused_sliced_matmul_cuda(x.contiguous(), ws, sw, **kw)

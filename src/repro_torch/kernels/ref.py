@@ -10,8 +10,8 @@ accumulation order is the kernel's: K-blocks outer, slice pairs inner
 accumulator, K-blocks summed in order from zero.
 
 Each slice-pair dot is the CUDA kernel's chain of float32 fused
-multiply-adds over the crossbar rows ``0..bk-1`` in order (every step
-computed in float64 and rounded once more to float32, see :func:`fma`).
+multiply-adds over the crossbar rows ``0..bk-1`` in order, each step
+rounded once as ``fmaf`` rounds (see :func:`_pair_dots`).
 The ADC is a step function of that partial sum, so the order matters:
 two float32 orders differ in the last bits often enough to move ADC
 codes at rel-Fro ~5e-4 on qwen2-0.5b shapes, while a library GEMM's
@@ -22,10 +22,11 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import xmath
 from repro_torch.core.quant import div
 from repro_torch.core.slicing import SliceSpec, slice_significances
 
-__all__ = ["sliced_matmul_ref", "fma"]
+__all__ = ["sliced_matmul_ref"]
 
 _EPS = 1e-30
 _CHUNK = 1 << 24  # partial sums held at once (bounds the plain version's memory)
@@ -63,23 +64,10 @@ def sliced_matmul_ref(
     ], dim=1)
 
 
-def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 ``a*b + c`` as the kernels' ``fmaf``: float64 holds the
-    product of two float32 values exactly, and the sum is rounded to
-    float64 and then to float32.  The two roundings differ from the one
-    of a fused multiply-add only where the first lands exactly halfway
-    between two float32 values without being exact, about once in 2**29
-    inexact sums; the exact form, :func:`repro_torch.core.xmath.fma`,
-    costs several times more on these slice-pair chains.  Broadcasts
-    like ``torch.addcmul``."""
-    return torch.addcmul(c.to(torch.float64), a.to(torch.float64), b.to(torch.float64)).to(
-        torch.float32
-    )
-
-
 def _pair_dots(xs: torch.Tensor, ws: torch.Tensor, bk: int) -> torch.Tensor:
     """Every slice-pair partial sum of every K-block, (nk, Sx, M, Sw, N),
-    as the kernel's in-order fused multiply-add chain over the rows."""
+    as the kernel's in-order chain of float32 fused multiply-adds over
+    the rows, each step rounded once (:func:`xmath.fma`)."""
     sxn, m, kp = xs.shape
     swn, _, n = ws.shape
     nk = kp // bk
@@ -87,7 +75,7 @@ def _pair_dots(xs: torch.Tensor, ws: torch.Tensor, bk: int) -> torch.Tensor:
     w = ws.to(torch.float64).reshape(swn, nk, bk, n).permute(1, 0, 2, 3)  # k j b n
     p = torch.zeros((nk, sxn, m, swn, n), dtype=torch.float32, device=xs.device)
     for r in range(bk):
-        p = fma(x[:, :, :, r, None, None], w[:, None, None, :, r], p)
+        p = xmath.fma(x[:, :, :, r, None, None], w[:, None, None, :, r], p)
     return p
 
 

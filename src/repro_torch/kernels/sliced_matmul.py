@@ -118,8 +118,10 @@ def fused_sliced_matmul_ref(
     radc: int,
     adc_mode: str,
     bm: int = 128,
+    drift: float = 1.0,
 ) -> torch.Tensor:
-    """Plain version of the fused kernel (K zero-padded to Kp).  Only
+    """Plain version of the fused kernel (K zero-padded to Kp), on the
+    slices times the float32 ``drift`` factor.  Only
     ``dynamic`` ranging depends on the row tiling: there M is padded with
     zero rows to whole ``bm`` tiles, as the reference wrapper does; the
     row-independent modes need no padding.  Returns (M, Np) float32."""
@@ -134,6 +136,8 @@ def fused_sliced_matmul_ref(
     padm = (-m) % bm if tiled else 0
     x = torch.nn.functional.pad(x.to(torch.float32), (0, kp - k, 0, padm))
     xs, sx = _prep_input(x, input_spec, bk, rdac)
+    if drift != 1.0:
+        ws = ws * torch.tensor(np.float32(drift), device=ws.device)
     y = sliced_matmul_ref(
         xs, sx, ws, sw, input_spec=input_spec, weight_spec=weight_spec,
         array_size=array_size, radc=radc, adc_mode=adc_mode,
@@ -346,6 +350,7 @@ def _entry(name: str):
         ctypes.c_void_p, ctypes.c_void_p,  # tickets, scratch
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # Kp, Np, tile
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # host int / float params, plan
+    ] + ([ctypes.c_float] if name == "fused_sliced_matmul_launch" else []) + [  # drift
         ctypes.c_void_p,  # stream
     ]
     return fn
@@ -397,7 +402,7 @@ def _buffers(device, stream: int, n_tickets: int, n_floats: int):
     return tickets.data_ptr(), floats.data_ptr()
 
 
-def _launch(name, lead, m, ws, sw, kp, np_, tile, plan, params, device):
+def _launch(name, lead, m, ws, sw, kp, np_, tile, plan, params, device, tail=()):
     out = torch.empty((m, np_), dtype=torch.float32, device=device)
     if m == 0:
         return out
@@ -408,7 +413,7 @@ def _launch(name, lead, m, ws, sw, kp, np_, tile, plan, params, device):
         rc = _entry(name)(
             *lead, ws.data_ptr(), sw.data_ptr(), floats if n_part else None, out.data_ptr(),
             tickets, floats + 4 * n_part if plan.scratch_floats else None,
-            kp, np_, tile, params[0], params[1], plan.ints_ptr, stream,
+            kp, np_, tile, params[0], params[1], plan.ints_ptr, *tail, stream,
         )
     check(rc, name)
     return out
@@ -426,13 +431,16 @@ def fused_sliced_matmul_cuda(
     radc: int,
     adc_mode: str,
     bm: int = 128,
+    drift: float = 1.0,
 ) -> torch.Tensor:
     """Launch K1 on the card: x (M, K) float32 raw activations, ws
     (Sw, Kp, Np) float32 programmed slices, sw (nk, nn) float32 block
     scales -> (M, Np) float32; ``bm`` rows share a ``dynamic`` range
-    (any ``bm >= 1``: ``bm >= M`` is one range over the whole call).
-    Raises on anything the kernel does not take (it never falls back to
-    the plain version)."""
+    (any ``bm >= 1``: ``bm >= M`` is one range over the whole call); a
+    float32 ``drift`` factor other than 1 multiplies each slice value as
+    it is loaded (the plain version on ``ws * drift``).  Raises on
+    anything the kernel does not take (it never falls back to the plain
+    version)."""
     who = "fused_sliced_matmul_cuda"
     tile, nk, kp, np_ = _check_weights(
         who, ws, sw, input_spec, weight_spec, array_size, adc_mode,
@@ -446,7 +454,7 @@ def fused_sliced_matmul_cuda(
     plan = plan_k1(m, kp, np_, tile, input_spec.n_slices, weight_spec.n_slices, adc_mode, bm,
                    radc)
     out = _launch("fused_sliced_matmul_launch", (x.data_ptr(), k, m, k), m, ws, sw,
-                  kp, np_, tile, plan, params, x.device)
+                  kp, np_, tile, plan, params, x.device, (float(np.float32(drift)),))
     if m:
         counter.count += 1
     return out

@@ -3,6 +3,7 @@ from .config import ArchConfig, EncoderConfig, MoEConfig, SSMConfig
 from .model import (
     copy_paged_block,
     decode_step,
+    decode_verify_step,
     init_paged_cache,
     init_params,
     prefill_chunk_step,
@@ -19,6 +20,7 @@ __all__ = [
     "init_paged_cache",
     "copy_paged_block",
     "decode_step",
+    "decode_verify_step",
     "prefill_chunk_step",
     "segments",
     "program_params",

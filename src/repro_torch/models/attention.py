@@ -26,28 +26,33 @@ from repro_torch.kernels.paged_attention import (
     attention_dense,
 )
 
-from .common import apply_rope, dense, init_key, make_dense_params, pget, rms_norm, rope
+from repro_torch.core.prng import split
+
+from .common import apply_rope, dense, make_dense_params, pget, rms_norm, rope
 
 __all__ = [
     "TRASH_BLOCK",
     "init_attn_params",
     "decode_attention_block",
     "chunk_attention_block",
+    "verify_attention_block",
     "attention_decode",
     "attention_dense",
     "_paged_gather",
     "_paged_token_write",
+    "_paged_multi_write",
 ]
 
 
 def init_attn_params(key, cfg, dtype=torch.float32, device="cuda"):
     d, hd = cfg.d_model, cfg.head_dim
     nh, nkv = cfg.n_heads, cfg.n_kv_heads
+    ks = split(key, 6)
     p = {
-        "q_proj": make_dense_params(init_key(key, 0), d, nh * hd, cfg.qkv_bias, dtype, device),
-        "k_proj": make_dense_params(init_key(key, 1), d, nkv * hd, cfg.qkv_bias, dtype, device),
-        "v_proj": make_dense_params(init_key(key, 2), d, nkv * hd, cfg.qkv_bias, dtype, device),
-        "o_proj": make_dense_params(init_key(key, 3), nh * hd, d, False, dtype, device),
+        "q_proj": make_dense_params(ks[0], d, nh * hd, cfg.qkv_bias, dtype, device),
+        "k_proj": make_dense_params(ks[1], d, nkv * hd, cfg.qkv_bias, dtype, device),
+        "v_proj": make_dense_params(ks[2], d, nkv * hd, cfg.qkv_bias, dtype, device),
+        "o_proj": make_dense_params(ks[3], nh * hd, d, False, dtype, device),
     }
     if cfg.qk_norm:
         p["q_norm"] = {"scale": torch.ones((hd,), dtype=dtype, device=device)}
@@ -152,6 +157,73 @@ def chunk_attention_block(
     pool_v[blk, off] = v[0].to(pool_v.dtype)
     out = _kops.paged_chunk_attention(
         q, pool_k, pool_v, bt_row, start, n_valid, window=cfg.swa_window, kernels=kernels,
+    )
+    y = dense(p["o_proj"], out.reshape(b, c, nh * hd), name=f"{name}.o",
+              prepared=pget(prepared, "o_proj"), **kw)
+    return y, pool_k, pool_v
+
+
+def _paged_multi_write(pool, block_tables, pos, vals, active):
+    """Write C consecutive tokens' K or V per slot into the pool (in
+    place): vals (B, C, KV, hd) in the pool dtype, token ``c`` of slot
+    ``b`` at logical position ``pos[b] + c``.  Rows with ``active``
+    False and positions past the slot's table go to the trash block, so
+    a verify chunk only writes blocks its slot owns, at positions from
+    its own frontier on."""
+    c = vals.shape[1]
+    bsz = pool.shape[1]
+    nb = block_tables.shape[1]
+    lp = pos[:, None] + torch.arange(c, device=pos.device, dtype=pos.dtype)[None]
+    blk = torch.gather(block_tables, 1, torch.clamp(lp // bsz, 0, nb - 1).long())
+    ok = lp < nb * bsz
+    if active is not None:
+        ok = ok & active[:, None]
+    blk = torch.where(ok, blk, torch.full_like(blk, TRASH_BLOCK))
+    pool[blk.long(), (lp % bsz).long()] = vals
+    return pool
+
+
+def verify_attention_block(
+    p, x, cfg, *, policy, rng, pool_k, pool_v, block_tables, pos, name,
+    prepared=None, active=None, kernels=True,
+):
+    """Attention block of one SPECULATIVE VERIFY chunk against the paged
+    pool.  x: (B, C, d) — per slot the last emitted token and C-1 draft
+    proposals at positions ``pos[b] .. pos[b]+C-1``.  All C positions'
+    K/V are written first (inactive lanes and positions past the table
+    to the trash block); then row (b, c) attends through the paged
+    decode attention (K2 on the card) as a query of its own at position
+    ``pos[b] + c`` in slot b's table.  Every row is therefore, by
+    construction, the decode a plain step at that position runs: the
+    same projections (row-independent), RoPE positions and K2 chains.
+    A row past the table's capacity reads the table's last position;
+    its logits are never used.  Returns (y, pool_k, pool_v), the pools
+    updated in place."""
+    b, c, d = x.shape
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kw = dict(policy=policy, rng=rng, kernels=kernels)
+    q = dense(p["q_proj"], x, name=f"{name}.q", prepared=pget(prepared, "q_proj"), **kw)
+    k = dense(p["k_proj"], x, name=f"{name}.k", prepared=pget(prepared, "k_proj"), **kw)
+    v = dense(p["v_proj"], x, name=f"{name}.v", prepared=pget(prepared, "v_proj"), **kw)
+    q = _split_heads(q, nh, hd)
+    k = _split_heads(k, nkv, hd)
+    v = _split_heads(v, nkv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"]["scale"])
+        k = rms_norm(k, p["k_norm"]["scale"])
+    positions = pos[:, None] + torch.arange(c, device=pos.device, dtype=pos.dtype)[None]
+    if cfg.rope_theta > 0:
+        cos, sin = rope(positions, hd, cfg.rope_theta)  # (B, C, half)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    _paged_multi_write(pool_k, block_tables, pos, k.to(pool_k.dtype), active)
+    _paged_multi_write(pool_v, block_tables, pos, v.to(pool_v.dtype), active)
+    cap = block_tables.shape[1] * pool_k.shape[1]
+    rows_pos = torch.clamp(positions, max=cap - 1).reshape(-1).to(torch.int32).contiguous()
+    rows_bt = torch.repeat_interleave(block_tables, c, dim=0).contiguous()
+    out = _kops.paged_decode_attention(
+        q.reshape(b * c, nh, hd), pool_k, pool_v, rows_bt, rows_pos,
+        window=cfg.swa_window, kernels=kernels,
     )
     y = dense(p["o_proj"], out.reshape(b, c, nh * hd), name=f"{name}.o",
               prepared=pget(prepared, "o_proj"), **kw)

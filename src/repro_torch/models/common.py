@@ -10,14 +10,12 @@ exactly the reference's pytree layout.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.layers import MemPolicy, layer_key, mem_linear
 from repro_torch.core.quant import div
-from repro_torch.core.prng import fold_in
+from repro_torch.core.prng import uniform
 
 __all__ = [
     "dense",
@@ -117,18 +115,34 @@ def dense(
     )
 
 
+def row_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the last axis (kept), summed in an order that depends on
+    that axis alone: halves added pairwise while the width is even, the
+    rest in order.  A CUDA reduction picks its order by the number of
+    rows (from 8 rows of 896 on), and a row must give the same bits in a
+    decode step (slots rows) and in a speculative verify (slots x C)."""
+    n = d = x.shape[-1]
+    while n % 2 == 0:
+        n //= 2
+        x = x[..., :n] + x[..., n:]
+    s = x[..., :1]
+    for j in range(1, n):
+        s = s + x[..., j:j + 1]
+    return div(s, d)
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     dt = x.dtype
     x = x.to(torch.float32)
-    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    x = x * torch.rsqrt(row_mean(x * x) + eps)
     return (x * scale.to(torch.float32)).to(dt)
 
 
 def layer_norm(x, scale, bias, eps: float = 1e-5):
     dt = x.dtype
     x = x.to(torch.float32)
-    mu = torch.mean(x, dim=-1, keepdim=True)
-    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    mu = row_mean(x)
+    var = row_mean((x - mu) ** 2)
     y = (x - mu) * torch.rsqrt(var + eps)
     return (y * scale.to(torch.float32) + bias.to(torch.float32)).to(dt)
 
@@ -170,25 +184,16 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
-def _generator(key, device) -> torch.Generator:
-    """A ``torch.Generator`` on ``device`` seeded with the key's 64 bits
-    (initial weights need not be the reference's bits: tests carry the
-    parameters across)."""
-    hi, lo = (int(v) for v in key)
-    g = torch.Generator(device=device)
-    g.manual_seed(((hi << 32) | lo) & ((1 << 63) - 1))
-    return g
-
-
 def uniform_init(key, shape, scale=None, dtype=torch.float32, device="cuda"):
-    """U(-scale, scale), default scale sqrt(3 / fan_in), from a generator
-    on ``device`` seeded by the prng ``key``."""
+    """``jax.random.uniform(key, shape, float32, -scale, scale)`` drawn on
+    ``device`` (:func:`repro_torch.core.prng.uniform`, the reference's
+    bits), default scale ``sqrt(3 / fan_in)``."""
+    if dtype != torch.float32:
+        raise NotImplementedError("initial weights are drawn in float32 only")
     fan_in = shape[0] if len(shape) > 1 else max(shape[0], 1)
     if scale is None:
-        scale = math.sqrt(3.0 / fan_in)
-    u = torch.rand(tuple(shape), generator=_generator(key, device), dtype=torch.float32,
-                   device=device)
-    return (u * (2.0 * scale) - scale).to(dtype)
+        scale = (3.0 / fan_in) ** 0.5
+    return uniform(key, shape, -scale, scale, device=device)
 
 
 def make_dense_params(key, k, n, bias=False, dtype=torch.float32, device="cuda"):
@@ -203,10 +208,3 @@ def make_norm_params(d, kind: str, dtype=torch.float32, device="cuda"):
     if kind == "ln":
         p["bias"] = torch.zeros((d,), dtype=dtype, device=device)
     return p
-
-
-def init_key(key, *path: int):
-    """Key for one initialised tensor, folded down ``path``."""
-    for p in path:
-        key = fold_in(key, p)
-    return key

@@ -38,15 +38,23 @@ def params_from_numpy(tree, device="cuda"):
 
 def programmed_from_numpy(tree, device="cuda"):
     """A programmed tree (named-tuple nodes with array leaves) -> the
-    port's ``PreparedWeight`` / ``FoldedWeight`` tree on ``device``.
-    Timestamps are dropped (drift is not ported)."""
+    port's ``PreparedWeight`` / ``FoldedWeight`` tree on ``device``.  A
+    timestamp (one per stacked layer in the reference, all equal) becomes
+    the node's float ``t_prog``."""
     if tree is None:
         return None
     if isinstance(tree, dict):
         return {k: programmed_from_numpy(v, device) for k, v in tree.items()}
     fields = getattr(tree, "_fields", ())
+    t_prog = getattr(tree, "t_prog", None)
+    if t_prog is not None:
+        stamps = np.unique(np.asarray(t_prog, np.float32))
+        if stamps.size != 1:
+            raise ValueError(f"programmed layers carry different timestamps {stamps}")
+        t_prog = float(stamps[0])
     if "slices" in fields:
-        return PreparedWeight(to_tensor(tree.slices, device), to_tensor(tree.scale, device))
+        return PreparedWeight(to_tensor(tree.slices, device), to_tensor(tree.scale, device),
+                              t_prog)
     if "w_eff" in fields:
-        return FoldedWeight(to_tensor(tree.w_eff, device))
+        return FoldedWeight(to_tensor(tree.w_eff, device), t_prog)
     raise TypeError(f"not a programmed node: {type(tree).__name__}")

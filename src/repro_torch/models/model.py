@@ -13,11 +13,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.layers import DIGITAL, MemPolicy
-from repro_torch.core.prng import PRNGKey, fold_in
+from repro_torch.core.prng import PRNGKey, fold_in, split
 
 from .common import (
     dense,
-    init_key,
     layer_slice,
     make_dense_params,
     make_norm_params,
@@ -27,7 +26,7 @@ from .common import (
     uniform_init,
 )
 from .config import ArchConfig
-from .transformer import block_chunk, block_decode, init_block_params
+from .transformer import block_chunk, block_decode, block_verify, init_block_params
 
 __all__ = [
     "segments",
@@ -35,6 +34,7 @@ __all__ = [
     "init_paged_cache",
     "copy_paged_block",
     "decode_step",
+    "decode_verify_step",
     "prefill_chunk_step",
 ]
 
@@ -51,23 +51,28 @@ def segments(cfg: ArchConfig) -> list[tuple[int, int, int]]:
     return segs
 
 
-def init_params(cfg: ArchConfig, seed: int = 0, dtype=torch.float32, device="cuda"):
-    """Seeded random parameters in the reference's layout (per-segment
-    leaves stacked over layers).  The values come from ``torch.Generator``
-    s, not JAX's threefry: tests carry the reference's params across
-    with :mod:`.convert` instead."""
-    key = PRNGKey(seed)
+def init_params(cfg: ArchConfig, key=0, dtype=torch.float32, device="cuda"):
+    """Random parameters in the reference's layout (per-segment leaves
+    stacked over layers), bit for bit the reference's ``init_params``:
+    the same threefry key tree (``split(key, 8)``, then per segment
+    ``split(fold_in(keys[2], si), steps)``) and the same uniform draws,
+    made on ``device``.  ``key`` is a :mod:`~repro_torch.core.prng` key
+    or a seed that stands for ``PRNGKey(seed)``."""
+    if isinstance(key, int):
+        key = PRNGKey(key)
+    keys = split(key, 8)
     d, v = cfg.d_model, cfg.vocab
     params = {
-        "embed": {"w": uniform_init(init_key(key, 0), (v, d), scale=0.02, dtype=dtype,
+        "embed": {"w": uniform_init(keys[0], (v, d), scale=0.02, dtype=dtype,
                                     device=device)},
         "final_norm": make_norm_params(d, cfg.norm, dtype, device),
-        "lm_head": make_dense_params(init_key(key, 1), d, v, False, dtype, device),
+        "lm_head": make_dense_params(keys[1], d, v, False, dtype, device),
         "blocks": {},
     }
     for si, (start, steps, tmpl) in enumerate(segments(cfg)):
+        seg_keys = split(fold_in(keys[2], si), steps)
         params["blocks"][f"seg{si}"] = stack_layers(
-            lambda i: init_block_params(init_key(key, 2, si, i), cfg, tmpl, dtype, device),
+            lambda i: init_block_params(seg_keys[i], cfg, tmpl, dtype, device),
             steps,
         )
     return params
@@ -214,6 +219,44 @@ def prefill_chunk_step(
     h = norm(last, params["final_norm"], cfg.norm)
     logits = dense(
         params["lm_head"], h, name="lm_head", policy=policy, rng=rng,
+        prepared=pget(programmed, "lm_head"), kernels=kernels,
+    ).to(torch.float32)
+    return logits, cache
+
+
+def decode_verify_step(
+    params,
+    cfg: ArchConfig,
+    cache: dict,
+    tokens: torch.Tensor,  # (B, C) last emitted token + C-1 draft proposals
+    *,
+    policy: MemPolicy = DIGITAL,
+    rng=None,
+    compute_dtype=torch.bfloat16,
+    programmed=None,
+    active: torch.Tensor | None = None,
+    kernels: bool = True,
+):
+    """The batched multi-token VERIFY forward of speculative decoding:
+    every slot's C candidate tokens through the layer stack at once;
+    returns per-position logits (B, C, V) float32 and the cache with all
+    C positions' K/V written but ``pos`` NOT advanced (the caller commits
+    the accepted frontier).  Row (b, c) is the logits a decode step at
+    ``pos[b] + c`` gives on the same accepted prefix."""
+    rng = PRNGKey(0) if rng is None else rng
+    block_tables = cache.get("block_tables")
+    if block_tables is None:
+        raise NotImplementedError("decode_verify_step requires the paged cache")
+    x = params["embed"]["w"].to(compute_dtype)[tokens.long()]  # (B, C, d)
+    pos = cache["pos"]
+    for p_l, prog_l, state, rng_l, tmpl in _layers(params, cfg, cache, programmed, rng):
+        x, _ = block_verify(
+            p_l, x, cfg, tmpl, policy=policy, rng=rng_l, pos=pos, state=state,
+            block_tables=block_tables, prepared=prog_l, active=active, kernels=kernels,
+        )
+    x = norm(x, params["final_norm"], cfg.norm)
+    logits = dense(
+        params["lm_head"], x, name="lm_head", policy=policy, rng=rng,
         prepared=pget(programmed, "lm_head"), kernels=kernels,
     ).to(torch.float32)
     return logits, cache

@@ -54,8 +54,9 @@ def program_params(
 
     Returns the programmed tree, or ``None`` when the policy has no
     hardware layers.  ``rng`` must equal the base key the decode and
-    prefill steps use (serving uses ``PRNGKey(0)``).  ``t_prog`` stamps
-    metadata only (drift is not ported).  ``kernels=False`` draws the
+    prefill steps use (serving uses ``PRNGKey(0)``).  ``t_prog`` is the
+    device-clock programming time stamped on every programmed weight
+    (the drift reference; None = untimed state, which never drifts).  ``kernels=False`` draws the
     programming noise with its plain version on a CUDA device."""
     rng = PRNGKey(0) if rng is None else rng
     if policy is None or not policy.enabled:

@@ -10,10 +10,17 @@ from __future__ import annotations
 
 import torch
 
-from .attention import chunk_attention_block, decode_attention_block, init_attn_params
-from .common import activation, dense, init_key, make_dense_params, make_norm_params, norm, pget
+from repro_torch.core.prng import split
 
-__all__ = ["init_block_params", "block_decode", "block_chunk"]
+from .attention import (
+    chunk_attention_block,
+    decode_attention_block,
+    init_attn_params,
+    verify_attention_block,
+)
+from .common import activation, dense, make_dense_params, make_norm_params, norm, pget
+
+__all__ = ["init_block_params", "block_decode", "block_chunk", "block_verify"]
 
 
 def _attn_only(cfg, layer_idx: int) -> None:
@@ -25,17 +32,21 @@ def _attn_only(cfg, layer_idx: int) -> None:
 
 
 def init_block_params(key, cfg, layer_idx, dtype=torch.float32, device="cuda"):
-    """Params of one dense attention layer."""
+    """Params of one dense attention layer (the reference's key tree:
+    ``k1, k2 = split(key)``, attention from ``k1``, the MLP from
+    ``split(k2, 3)``)."""
     _attn_only(cfg, layer_idx)
     d = cfg.d_model
+    k1, k2 = split(key)
+    ks = split(k2, 3)
     return {
         "norm1": make_norm_params(d, cfg.norm, dtype, device),
         "norm2": make_norm_params(d, cfg.norm, dtype, device),
-        "attn": init_attn_params(init_key(key, 0), cfg, dtype, device),
+        "attn": init_attn_params(k1, cfg, dtype, device),
         "mlp": {
-            "wi": make_dense_params(init_key(key, 1, 0), d, cfg.d_ff, False, dtype, device),
-            "wg": make_dense_params(init_key(key, 1, 1), d, cfg.d_ff, False, dtype, device),
-            "wo": make_dense_params(init_key(key, 1, 2), cfg.d_ff, d, False, dtype, device),
+            "wi": make_dense_params(ks[0], d, cfg.d_ff, False, dtype, device),
+            "wg": make_dense_params(ks[1], d, cfg.d_ff, False, dtype, device),
+            "wo": make_dense_params(ks[2], cfg.d_ff, d, False, dtype, device),
         },
     }
 
@@ -91,5 +102,27 @@ def block_chunk(p, x, cfg, template_idx, *, policy, rng, state, bt_row, start,
     x = x + _ffn_forward(
         p, h, cfg, policy=policy, rng=rng, name=name, prepared=prepared,
         kernels=kernels,
+    )
+    return x, {"k": pk, "v": pv}
+
+
+def block_verify(p, x, cfg, template_idx, *, policy, rng, pos, state, block_tables,
+                 prepared=None, active=None, kernels=True):
+    """One attention layer of a SPECULATIVE VERIFY chunk: x (B, C, d), the
+    layer's pools in ``state`` updated in place.  Layer names and keys
+    are :func:`block_decode`'s, and the residual / FFN stack is
+    row-independent, so row (b, c) is the decode at ``pos[b] + c``."""
+    _attn_only(cfg, template_idx)
+    name = "L.attn"
+    h = norm(x, p["norm1"], cfg.norm)
+    y, pk, pv = verify_attention_block(
+        p["attn"], h, cfg, policy=policy, rng=rng, pool_k=state["k"], pool_v=state["v"],
+        block_tables=block_tables, pos=pos, name=name, prepared=pget(prepared, "attn"),
+        active=active, kernels=kernels,
+    )
+    x = x + y
+    h = norm(x, p["norm2"], cfg.norm)
+    x = x + _ffn_forward(
+        p, h, cfg, policy=policy, rng=rng, name=name, prepared=prepared, kernels=kernels,
     )
     return x, {"k": pk, "v": pv}

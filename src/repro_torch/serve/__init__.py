@@ -9,8 +9,9 @@ from .batching import (
     default_buckets,
 )
 from .config import ServeConfig
-from .engine import make_chunk_prefill, make_decode_step
+from .engine import make_chunk_prefill, make_decode_step, make_verify_step
 from .prefix_cache import AdmitPlan, PrefixCache
+from .sampling import GREEDY, SamplingParams, request_keys, sample_row, sample_rows
 
 __all__ = [
     "ServeLoop",
@@ -24,4 +25,10 @@ __all__ = [
     "default_buckets",
     "make_chunk_prefill",
     "make_decode_step",
+    "make_verify_step",
+    "SamplingParams",
+    "GREEDY",
+    "request_keys",
+    "sample_row",
+    "sample_rows",
 ]

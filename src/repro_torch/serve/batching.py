@@ -1,5 +1,5 @@
 """Continuous-batching serving engine over program-once crossbar state
-(port of ``repro/serve/batching.py``, greedy decoding only).
+(port of ``repro/serve/batching.py``).
 
 * :class:`RequestQueue` is the priority-class admission scheduler
   (``"interactive"`` | ``"batch"``, weighted round-robin, an aging bound
@@ -7,20 +7,29 @@
   Python, ported as is.
 * :class:`ServeLoop` owns ``slots`` decode lanes backed by a PAGED KV
   arena (one block pool per attention layer, indexed through per-slot
-  block tables) and ONE programmed model.  Each iteration (1) admits
-  ready requests into free lanes through the refcounted
-  :class:`~repro_torch.serve.prefix_cache.PrefixCache` (resident prompt
-  prefixes are mapped, a shared block about to be written is copied
-  first), (2) advances every prefilling lane by ONE prompt chunk, and
-  (3) runs one slot-parallel decode step over the active lanes, retiring
-  finished requests (EOS / max-token) and freeing their blocks.
+  block tables) and the programmed model.  Each iteration (0) samples
+  the device clock once (drift ages the programmed state by it; a due
+  refresh programs generation N+1 with fresh noise while generation N
+  keeps serving), (1) admits ready requests into free lanes through the
+  refcounted :class:`~repro_torch.serve.prefix_cache.PrefixCache`, (2)
+  advances every prefilling lane by ONE prompt chunk (and its draft
+  prefill, with speculation), and (3) runs one slot-parallel decode step
+  — or one speculative round — per live generation over the active
+  lanes, retiring finished requests and freeing their blocks.
+
+Requests decode greedily or sample (``Request.sampling``: token ``i``
+draws with ``fold_in(PRNGKey(seed), i)``, whatever slot it lands in).
+With ``spec_k > 0`` a draft engine folded from the same params proposes
+``spec_k`` tokens a lane and the target verifies them in one multi-token
+forward; a draft is accepted only while it equals the token the target
+itself emits, so the emitted tokens are the plain trajectory's and only
+throughput moves.  A lane keeps the programmed generation it was
+admitted under until it retires; the draft is never re-programmed.
 
 Differences from the reference: PyTorch runs eagerly, so there is no
-jit cache; the arena is updated IN PLACE (``index_put_``) where the
-reference donates it to its jitted steps; sampling, speculative
-decoding, generation refresh and meshes are not ported
-(``Request.sampling`` and the matching ``ServeConfig`` knobs raise
-``NotImplementedError``).
+jit cache and the spec round is a Python loop of draft decodes and one
+verify; the arena is updated IN PLACE (``index_put_``) where the
+reference donates it; meshes are not ported.
 
 Equivalence contract: every per-row computation is row-independent and
 the paged layout and chunking are pure data movement, so a request
@@ -37,19 +46,21 @@ import numpy as np
 import torch
 
 from repro_torch.core.layers import MemPolicy
-from repro_torch.core.prng import PRNGKey
+from repro_torch.core.prng import PRNGKey, fold_in
 from repro_torch.models import program_params
 from repro_torch.models.common import tree_leaves
 from repro_torch.models.model import copy_paged_block, init_paged_cache
 
 from .config import ServeConfig
-from .engine import make_chunk_prefill, make_decode_step
+from .engine import make_chunk_prefill, make_decode_step, make_verify_step
 from .prefix_cache import PrefixCache
+from .sampling import SamplingParams, request_keys, sample_row, sample_rows
 
 __all__ = [
     "Request",
     "RequestResult",
     "RequestQueue",
+    "SamplingParams",
     "ServeConfig",
     "ServeLoop",
     "ServeReport",
@@ -65,8 +76,8 @@ class Request:
     """One generation request.  ``max_new_tokens`` counts every emitted
     token including the one from the prefill logits; ``submit_time`` is
     seconds relative to ``ServeLoop.run`` start; ``priority`` is the
-    admission class.  ``sampling`` must stay None (greedy): sampled
-    decoding waits for the threefry port (ROADMAP A6)."""
+    admission class.  ``sampling`` (a :class:`SamplingParams`, None for
+    greedy) draws token ``i`` with ``fold_in(PRNGKey(seed), i)``."""
 
     rid: int
     tokens: np.ndarray  # (prompt_len,) int32
@@ -74,20 +85,16 @@ class Request:
     eos_id: int | None = None
     submit_time: float = 0.0
     priority: str = "batch"  # "interactive" | "batch"
-    sampling: object = None
-
-    def __post_init__(self):
-        if self.sampling is not None:
-            raise NotImplementedError(
-                "sampled decoding is not ported to repro_torch yet (greedy only)"
-            )
+    sampling: SamplingParams | None = None
 
 
 @dataclass
 class RequestResult:
     """Per-request outcome; timing fields are host wall-clock seconds
     relative to ``ServeLoop.run`` start (``None`` for refused requests,
-    whose reason is in ``error``)."""
+    whose reason is in ``error``).  Beyond the reference's fields,
+    ``generation`` is the programmed generation the request was admitted
+    under and ran on to the end."""
 
     rid: int
     prompt_len: int
@@ -103,6 +110,16 @@ class RequestResult:
     prefill_chunks: int = 0
     priority: str = "batch"
     error: str | None = None
+    tokens_drafted: int = 0  # draft proposals the target examined
+    tokens_accepted: int = 0  # of those, accepted (== the target's token)
+    generation: int = 0  # the programmed generation the request ran on
+
+    @property
+    def acceptance(self) -> float | None:
+        """Accepted / examined draft proposals (None without a round)."""
+        if self.tokens_drafted == 0:
+            return None
+        return self.tokens_accepted / self.tokens_drafted
 
     @property
     def latency_s(self) -> float | None:
@@ -154,6 +171,9 @@ class ServeReport:
     scheduler_skips: int = 0
     aged_admissions: int = 0
     prefill_chunks_run: int = 0
+    reprogram_swaps: int = 0
+    tokens_drafted: int = 0
+    tokens_accepted: int = 0
     trace: list | None = None
 
     COUNTER_FIELDS = (
@@ -169,7 +189,19 @@ class ServeReport:
         "scheduler_skips",
         "aged_admissions",
         "prefill_chunks_run",
+        "reprogram_swaps",
+        "tokens_drafted",
+        "tokens_accepted",
     )
+
+    @property
+    def acceptance_rate(self) -> float | None:
+        """Accepted / examined draft proposals over the run (None when no
+        speculative round ran); exactly 1.0 for a draft whose numerics
+        are the target's."""
+        if self.tokens_drafted == 0:
+            return None
+        return self.tokens_accepted / self.tokens_drafted
 
     def counters(self) -> dict:
         return {k: int(getattr(self, k)) for k in self.COUNTER_FIELDS}
@@ -322,6 +354,10 @@ class _SlotState:
     request: Request
     admit_time: float
     plan: object  # prefix_cache.AdmitPlan — owns the block references
+    # the programmed generation the lane was admitted under: every chunk
+    # and decode step of the request runs against it (no swap mid-request)
+    programmed: object = None
+    gen: int = 0
     prefill_pos: int = 0
     first_token_time: float = 0.0
     out: list = field(default_factory=list)
@@ -329,16 +365,39 @@ class _SlotState:
     decode_steps: int = 0
     prefill_chunks: int = 0
     finish_reason: str | None = None
+    # sampling: keys[i] draws emission i (temp 0.0 = greedy argmax)
+    keys: np.ndarray | None = None
+    temp: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    # speculation: the draft's prefill frontier and the acceptance counts
+    draft_pos: int = 0
+    tokens_drafted: int = 0
+    tokens_accepted: int = 0
+
+
+def _coupled(policy: MemPolicy) -> list:
+    """The patterns of ``policy`` whose ADC range couples batch rows."""
+    return [
+        pat
+        for pat, c in (("default", policy.default),) + tuple(policy.overrides)
+        if c is not None and not c.row_independent
+    ]
+
+
+def _drifts(policy: MemPolicy) -> bool:
+    return any(c is not None and c.drift is not None for c in policy.configs())
 
 
 class ServeLoop:
-    """Continuous-batching greedy decoding against shared programmed
-    state; per iteration: admit, one prefill chunk per prefilling lane,
-    one decode step over the active lanes (see the module docstring).
+    """Continuous-batching decoding against programmed state; per
+    iteration: the device clock and refresh, admit, one prefill chunk per
+    prefilling lane, one decode step or speculative round per live
+    generation over the active lanes (see the module docstring).
 
     ``params`` must already live on ``config.device``; the model is
     programmed there at construction (weight-stationary), unless a
-    ``programmed`` tree is passed in."""
+    generation-0 ``programmed`` tree is passed in."""
 
     def __init__(self, params, cfg, config: ServeConfig | None = None, *, programmed=None):
         config = config or ServeConfig()
@@ -353,18 +412,25 @@ class ServeLoop:
                 f"continuous batching requires all-attention layers (got {sorted(kinds)})"
             )
         self.policy = config.policy or MemPolicy(default=None)
+        self.spec_k = int(config.spec_k)
+        self.draft_policy = config.draft_policy or MemPolicy(default=None)
         if not config.allow_coupled_numerics:
-            coupled = [
-                pat
-                for pat, c in (("default", self.policy.default),) + tuple(self.policy.overrides)
-                if c is not None and not c.row_independent
-            ]
+            coupled = _coupled(self.policy)
             if coupled:
                 raise ValueError(
                     "policy couples batch rows through the ADC range (faithful "
                     f"adc_mode='dynamic' at {coupled}): a request would decode "
                     "differently next to strangers.  Use adc_mode='dynamic_row' "
                     "or 'fullscale', or pass allow_coupled_numerics=True."
+                )
+            coupled = _coupled(self.draft_policy) if self.spec_k else []
+            if coupled:
+                raise ValueError(
+                    "draft_policy couples batch rows through the ADC range "
+                    f"(faithful adc_mode='dynamic' at {coupled}): draft proposals "
+                    "(hence acceptance) would depend on slot neighbours.  Use "
+                    "adc_mode='dynamic_row' or 'fullscale', or pass "
+                    "allow_coupled_numerics=True."
                 )
         self.device = torch.device(config.device)
         if self.device.type == "cuda" and self.device.index is None:
@@ -395,21 +461,42 @@ class ServeLoop:
         )
         self.collect_logits = config.collect_logits
         self.collect_trace = config.collect_trace
+        self.kernels = config.kernels
         if programmed is None and config.weight_stationary and self.policy.enabled:
             # PRNGKey(0) = the static serving key of the step makers
             programmed = program_params(params, cfg, self.policy, PRNGKey(0),
-                                        kernels=config.kernels)
+                                        kernels=self.kernels)
+        # the draft's state is pinned at generation 0: drafts only steer
+        # throughput, so a refresh never re-programs them
+        self.draft_programmed = None
+        if self.spec_k and config.weight_stationary and self.draft_policy.enabled:
+            self.draft_programmed = program_params(
+                params, cfg, self.draft_policy, PRNGKey(0), kernels=self.kernels)
         self.programmed = programmed
-        self._chunk = make_chunk_prefill(
-            cfg, self.policy, compute_dtype=self.compute_dtype, kernels=config.kernels
-        )
-        self._decode = make_decode_step(
-            cfg, self.policy, compute_dtype=self.compute_dtype, kernels=config.kernels
-        )
+        steps = dict(compute_dtype=self.compute_dtype, kernels=self.kernels)
+        self._chunk = make_chunk_prefill(cfg, self.policy, **steps)
+        self._decode = make_decode_step(cfg, self.policy, **steps)
+        if self.spec_k:
+            self._draft_chunk = make_chunk_prefill(cfg, self.draft_policy, **steps)
+            self._draft_decode = make_decode_step(cfg, self.draft_policy, **steps)
+            self._verify = make_verify_step(cfg, self.policy, **steps)
         self.prefix_cache = bool(config.prefix_cache)
         self._blocks = PrefixCache(self.kv_blocks, self.block_size, enabled=self.prefix_cache)
         self.interactive_weight = int(config.interactive_weight)
         self.max_queue_skip = int(config.max_queue_skip)
+        # programmed-state generations: self.programmed is the current
+        # one; the counter persists across run() calls (device state)
+        self.refresh_every = config.refresh_every
+        self.clock = config.clock
+        self.generation = 0
+        if self.refresh_every is not None and self.programmed is None:
+            raise ValueError(
+                "refresh_every needs weight-stationary programmed state (a hardware "
+                "policy with weight_stationary=True): there is nothing to re-program"
+            )
+        # without any drift model no clock value reaches the steps, so
+        # they run exactly the drift-free arithmetic
+        self._drift_on = _drifts(self.policy) or bool(self.spec_k and _drifts(self.draft_policy))
 
     # -- helpers ------------------------------------------------------------
 
@@ -480,6 +567,9 @@ class ServeLoop:
             cached_prompt_tokens=st.plan.cached_len,
             prefill_chunks=st.prefill_chunks,
             priority=st.request.priority,
+            tokens_drafted=st.tokens_drafted,
+            tokens_accepted=st.tokens_accepted,
+            generation=st.gen,
         )
 
     def _refused_result(self, r: Request, msg: str) -> RequestResult:
@@ -488,6 +578,45 @@ class ServeLoop:
             submit_time=r.submit_time, admit_time=None, first_token_time=None,
             finish_time=None, decode_steps=0, priority=r.priority, error=msg,
         )
+
+    def _chunk_tokens(self, r: Request, start: int):
+        """(tokens, n_valid) of the prompt chunk starting at ``start``."""
+        plen = len(r.tokens)
+        clen = self.prefill_chunk or self._bucket_for(plen - start)
+        nv = min(clen, plen - start)
+        toks = np.zeros((clen,), np.int32)
+        toks[:nv] = np.asarray(r.tokens[start:start + nv], np.int32)
+        return torch.from_numpy(toks).to(self.device), nv
+
+    def _spec_round(self, cache, draft_cache, tokens, pos_t, pos_d, prog, mask, t_now,
+                    keys_d, keys_v, temps, top_ks, top_ps):
+        """One speculative round: commit both caches' accepted frontiers
+        (``pos_t`` / ``pos_d``), ``spec_k`` draft decodes each drawing
+        with the key of its emission, one more draft decode that writes
+        the last proposal's K/V, then the target's verify of all C =
+        spec_k + 1 positions.  Returns the target's logits (K, C, V), the
+        tokens it emits at each position (K, C) — drawn with the keys the
+        plain path would use — and the proposed tokens (K, C)."""
+        dev = self.device
+        k_sl, c = len(tokens), self.spec_k + 1
+        cache["pos"] = torch.from_numpy(pos_t).to(dev)
+        draft_cache["pos"] = torch.from_numpy(pos_d).to(dev)
+        active = torch.from_numpy(mask).to(dev)
+        toks = torch.from_numpy(tokens).to(dev).long()
+        cols = [toks]
+        for j in range(self.spec_k):
+            logits, draft_cache = self._draft_decode(
+                self.params, draft_cache, toks, self.draft_programmed, active, t_now)
+            toks = sample_rows(keys_d[j], logits, temps, top_ks, top_ps)
+            cols.append(toks)
+        _, draft_cache = self._draft_decode(
+            self.params, draft_cache, toks, self.draft_programmed, active, t_now)
+        tokens_c = torch.stack(cols, dim=1)
+        logits, cache = self._verify(self.params, cache, tokens_c, prog, active, t_now)
+        rep = lambda a: np.repeat(np.asarray(a), c)  # noqa: E731
+        toks_v = sample_rows(keys_v.reshape(k_sl * c, 2), logits.reshape(k_sl * c, -1),
+                             rep(temps), rep(top_ks), rep(top_ps)).reshape(k_sl, c)
+        return logits, toks_v, tokens_c
 
     # -- the loop -----------------------------------------------------------
 
@@ -529,11 +658,26 @@ class ServeLoop:
             self.cfg, K, self.max_len, self.block_size, self.kv_blocks,
             self.cache_dtype, device=dev,
         )
+        run_sampled = any(r.sampling is not None for r in requests)
+        spec = self.spec_k > 0
+        C = self.spec_k + 1
+        draft_cache = None
+        if spec:
+            # the draft's own arena, statically partitioned: slot k owns
+            # blocks 1 + k*nbps .. (k+1)*nbps (block 0 stays trash)
+            draft_cache = init_paged_cache(
+                self.cfg, K, self.max_len, self.block_size,
+                K * self.blocks_per_slot + 1, self.cache_dtype, device=dev,
+            )
         slot_state: list[_SlotState | None] = [None] * K
         next_tok = np.zeros((K,), np.int32)
         active = np.zeros((K,), bool)
+        # the sampling knobs of each slot's occupant (temp 0 = greedy)
+        slot_temp = np.zeros((K,), np.float32)
+        slot_topk = np.zeros((K,), np.int32)
+        slot_topp = np.ones((K,), np.float32)
         results: dict[int, RequestResult] = {}
-        total_chunks = 0
+        total_chunks = swaps = 0
         trace: list | None = [] if self.collect_trace else None
         t0 = time.monotonic()
         decode_steps = generated = occupancy = 0
@@ -541,11 +685,53 @@ class ServeLoop:
         def now() -> float:
             return time.monotonic() - t0
 
+        # the DEVICE clock ages drift and drives refresh (injectable for
+        # tests); latency metrics always use the wall clock above
+        dev_clock = self.clock or now
+        # one start-of-run sample whether or not refresh is armed, so the
+        # clock sequence (and the drift it ages) is the same either way
+        t_start = dev_clock()
+        next_refresh = None if self.refresh_every is None else t_start + self.refresh_every
         probe = (
             (lambda rq: self._blocks.resident_prefix_len(rq.tokens))
             if self.prefix_cache else None
         )
+
+        def retire(k: int) -> None:
+            st = slot_state[k]
+            results[st.request.rid] = self._result(st, now())
+            self._blocks.release(st.plan)
+            slot_state[k] = None
+            active[k] = False
+
+        def gen_masks():
+            """(mask, programmed) of each live generation's active lanes."""
+            gens = sorted({slot_state[k].gen for k in range(K) if active[k]})
+            for g in gens:
+                mask = np.array([bool(active[k]) and slot_state[k].gen == g for k in range(K)])
+                yield mask, slot_state[int(np.flatnonzero(mask)[0])].programmed
+
         while len(results) < len(requests):
+            # 0. one device-clock sample per iteration: every step of the
+            # iteration ages drift to it, and a due refresh programs
+            # generation N+1 (fresh noise fold_in(key0, N+1), t_prog =
+            # now) once the lanes of an older generation have drained —
+            # at most two generations are live
+            t_dev = dev_clock()
+            t_arg = float(np.float32(t_dev)) if self._drift_on else None
+            if next_refresh is not None and t_dev >= next_refresh:
+                draining = any(st is not None and st.gen != self.generation
+                               for st in slot_state)
+                if not draining:
+                    self.generation += 1
+                    self.programmed = program_params(
+                        self.params, self.cfg, self.policy,
+                        fold_in(PRNGKey(0), self.generation), t_prog=t_dev,
+                        kernels=self.kernels,
+                    )
+                    swaps += 1
+                    next_refresh = t_dev + self.refresh_every
+
             # 1. admit: the scheduler binds ready requests to free lanes,
             # eagerly allocating each pick's full KV block need
             def_before = queue.deferrals
@@ -569,58 +755,106 @@ class ServeLoop:
                 if plan.cow is not None:
                     # clone the shared block this lane is about to write into
                     copy_paged_block(cache, *plan.cow)
+                sp = r.sampling
+                n_keys = r.max_new_tokens + self.spec_k + 1
+                if sp is not None and sp.temperature > 0:
+                    keys = request_keys(sp.seed, n_keys)
+                    temp, tk, tp = float(sp.temperature), int(sp.top_k), float(sp.top_p)
+                else:  # greedy: the keys never reach a draw
+                    keys = np.zeros((n_keys, 2), np.uint32)
+                    temp, tk, tp = 0.0, 0, 1.0
+                slot_temp[k], slot_topk[k], slot_topp[k] = temp, tk, tp
                 slot_state[k] = _SlotState(
-                    request=r, admit_time=now(), plan=plan, prefill_pos=plan.resume_pos,
+                    request=r, admit_time=now(), plan=plan,
+                    programmed=self.programmed, gen=self.generation,
+                    prefill_pos=plan.resume_pos,
                     logits=[] if self.collect_logits else None,
+                    keys=keys, temp=temp, top_k=tk, top_p=tp,
                 )
                 active[k] = False
+                if spec:
+                    # the draft prefills the whole prompt from 0 in its own
+                    # block range (its arena shares nothing)
+                    draft_cache["block_tables"][k] = torch.arange(
+                        1 + k * self.blocks_per_slot, 1 + (k + 1) * self.blocks_per_slot,
+                        dtype=torch.int32, device=dev)
+                    draft_cache["pos"][k] = 0
 
-            # 2. one prefill chunk per still-prefilling lane
-            chunks_run = 0
+            # 2. one prefill chunk per still-prefilling lane (and one draft
+            # chunk with speculation); the lane decodes once both engines
+            # hold the prompt, its first token from the target's last chunk
+            chunks_run = draft_chunks = 0
             for k in range(K):
                 st = slot_state[k]
                 if st is None or active[k]:
                     continue
                 r = st.request
                 plen = len(r.tokens)
-                start = st.prefill_pos
-                clen = self.prefill_chunk or self._bucket_for(plen - start)
-                nv = min(clen, plen - start)
-                toks = np.zeros((clen,), np.int32)
-                toks[:nv] = np.asarray(r.tokens[start:start + nv], np.int32)
-                final = start + nv >= plen
-                logits, cache = self._chunk(
-                    self.params, cache, torch.from_numpy(toks).to(dev), k, start, nv,
-                    final, self.programmed,
-                )
-                st.prefill_pos = start + nv
-                st.prefill_chunks += 1
-                chunks_run += 1
-                self._blocks.register_progress(st.plan, st.prefill_pos)
-                if final:  # the final chunk's logits give the first token
-                    row = logits[0]
-                    t_first = int(torch.argmax(row))
-                    st.first_token_time = now()
-                    generated += 1
-                    if self._emit(st, t_first, row.cpu().numpy() if self.collect_logits else None):
-                        results[r.rid] = self._result(st, now())
-                        self._blocks.release(st.plan)
-                        slot_state[k] = None
-                        continue
-                    next_tok[k] = t_first
+                if st.prefill_pos < plen:
+                    start = st.prefill_pos
+                    toks, nv = self._chunk_tokens(r, start)
+                    final = start + nv >= plen
+                    logits, cache = self._chunk(
+                        self.params, cache, toks, k, start, nv, final, st.programmed, t_arg,
+                    )
+                    st.prefill_pos = start + nv
+                    st.prefill_chunks += 1
+                    chunks_run += 1
+                    self._blocks.register_progress(st.plan, st.prefill_pos)
+                    if final:  # the final chunk's logits give the first token
+                        row = logits[0]
+                        if st.temp > 0:  # emission 0 draws with keys[0]
+                            t_first = sample_row(st.keys[0], row, st.temp, st.top_k, st.top_p)
+                        else:
+                            t_first = int(torch.argmax(row))
+                        st.first_token_time = now()
+                        generated += 1
+                        if self._emit(st, t_first,
+                                      row.cpu().numpy() if self.collect_logits else None):
+                            retire(k)
+                            continue
+                        next_tok[k] = t_first
+                if spec and st.draft_pos < plen:
+                    # final=False: the draft needs no prefill logits
+                    toks, nv = self._chunk_tokens(r, st.draft_pos)
+                    _, draft_cache = self._draft_chunk(
+                        self.params, draft_cache, toks, k, st.draft_pos, nv, False,
+                        self.draft_programmed, t_arg,
+                    )
+                    st.draft_pos += nv
+                    draft_chunks += 1
+                if st.prefill_pos >= plen and (not spec or st.draft_pos >= plen) and st.out:
                     active[k] = True
 
-            # 3. slot-parallel decode over the active lanes
+            # 3. one decode step (or speculative round) per live generation
+            # over its active lanes (complementary masks: a masked-out
+            # lane writes only the trash block, so the calls compose)
             decoded = int(active.sum())
-            if decoded:
-                logits, cache = self._decode(
-                    self.params, cache, torch.from_numpy(next_tok).to(dev),
-                    self.programmed, torch.from_numpy(active.copy()).to(dev),
-                )
-                toks_np = torch.argmax(logits, dim=-1).cpu().numpy()
-                logits_np = logits.cpu().numpy() if self.collect_logits else None
-                decode_steps += 1
-                occupancy += decoded
+            if decoded and not spec:
+                toks_np = np.zeros((K,), np.int64)
+                logits_np = None
+                keys_now = np.zeros((K, 2), np.uint32)
+                if run_sampled:  # emission index of this step's token = len(out)
+                    for k in range(K):
+                        if active[k]:
+                            keys_now[k] = slot_state[k].keys[len(slot_state[k].out)]
+                for mask, prog in gen_masks():
+                    logits, cache = self._decode(
+                        self.params, cache, torch.from_numpy(next_tok).to(dev), prog,
+                        torch.from_numpy(mask).to(dev), t_arg,
+                    )
+                    if run_sampled:
+                        toks = sample_rows(keys_now, logits, slot_temp * mask, slot_topk,
+                                           slot_topp)
+                    else:
+                        toks = torch.argmax(logits, dim=-1)
+                    decode_steps += 1
+                    occupancy += int(mask.sum())
+                    toks_np[mask] = toks.cpu().numpy()[mask]
+                    if self.collect_logits:
+                        l_np = logits.cpu().numpy()
+                        logits_np = np.zeros_like(l_np) if logits_np is None else logits_np
+                        logits_np[mask] = l_np[mask]
                 for k in range(K):
                     if not active[k]:
                         continue
@@ -628,14 +862,64 @@ class ServeLoop:
                     st.decode_steps += 1
                     generated += 1
                     t = int(toks_np[k])
-                    row = logits_np[k] if logits_np is not None else None
-                    if self._emit(st, t, row):
-                        results[st.request.rid] = self._result(st, now())
-                        self._blocks.release(st.plan)
-                        slot_state[k] = None
-                        active[k] = False
+                    if self._emit(st, t, logits_np[k] if logits_np is not None else None):
+                        retire(k)
                     else:
                         next_tok[k] = t
+            elif decoded:
+                # speculative rounds: the target's token at each verified
+                # position is what gets emitted; acceptance only decides
+                # how many of the round's columns are usable
+                for mask, prog in gen_masks():
+                    keys_d = np.zeros((self.spec_k, K, 2), np.uint32)
+                    keys_v = np.zeros((K, C, 2), np.uint32)
+                    for k in np.flatnonzero(mask):
+                        st = slot_state[k]
+                        e0 = len(st.out)
+                        keys_d[:, k] = st.keys[e0:e0 + self.spec_k]
+                        keys_v[k] = st.keys[e0:e0 + C]
+                    # the accepted frontier going into the round: active =
+                    # one past the last emitted token's KV, prefilling = the
+                    # chunk frontier, free = parked at 0
+                    pos_t = np.zeros((K,), np.int32)
+                    pos_d = np.zeros((K,), np.int32)
+                    for k in range(K):
+                        st = slot_state[k]
+                        if st is None:
+                            continue
+                        if active[k]:
+                            pos_t[k] = pos_d[k] = len(st.request.tokens) + len(st.out) - 1
+                        else:
+                            pos_t[k], pos_d[k] = st.prefill_pos, st.draft_pos
+                    logits, toks_v, tokens_c = self._spec_round(
+                        cache, draft_cache, next_tok, pos_t, pos_d, prog, mask, t_arg,
+                        keys_d, keys_v, slot_temp * mask, slot_topk, slot_topp,
+                    )
+                    decode_steps += 1
+                    occupancy += int(mask.sum())
+                    toks_v = toks_v.cpu().numpy()
+                    tokens_c = tokens_c.cpu().numpy()
+                    l_np = logits.cpu().numpy() if self.collect_logits else None
+                    for k in np.flatnonzero(mask):
+                        st = slot_state[k]
+                        st.decode_steps += 1
+                        fin = False
+                        for c in range(C):
+                            tok_t = int(toks_v[k, c])
+                            generated += 1
+                            fin = self._emit(st, tok_t, l_np[k, c] if l_np is not None else None)
+                            if fin or c == C - 1:
+                                break
+                            # column c+1 is valid iff its input (the draft)
+                            # is the token the target just emitted
+                            st.tokens_drafted += 1
+                            if int(tokens_c[k, c + 1]) != tok_t:
+                                break
+                            st.tokens_accepted += 1
+                        if fin:
+                            retire(k)
+                        else:
+                            next_tok[k] = st.out[-1]
             total_chunks += chunks_run
             if trace is not None:
                 trace.append({
@@ -644,7 +928,7 @@ class ServeLoop:
                     "admitted": admitted_now,
                     "deferred": queue.deferrals - def_before,
                 })
-            if decoded == 0 and chunks_run == 0:
+            if decoded == 0 and chunks_run == 0 and draft_chunks == 0:
                 if len(results) == len(requests):
                     break
                 if queue.has_ready(now()):
@@ -675,5 +959,8 @@ class ServeLoop:
             scheduler_skips=queue.skips,
             aged_admissions=queue.aged_admissions,
             prefill_chunks_run=total_chunks,
+            reprogram_swaps=swaps,
+            tokens_drafted=sum(res.tokens_drafted for res in ordered),
+            tokens_accepted=sum(res.tokens_accepted for res in ordered),
             trace=trace,
         )

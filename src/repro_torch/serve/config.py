@@ -3,9 +3,8 @@
 ``ServeLoop(params, cfg, ServeConfig(...))`` is the surface.  Beyond the
 reference's knobs the port has ``device`` (where the arena lives and
 programming runs; ``"cuda"`` unless the caller asks for the CPU) and
-``kernels`` (``False`` is the explicit plain-version override).  Knobs of
-features not ported yet — ``mesh``, ``refresh_every``/``clock``,
-``spec_k``/``draft_policy`` — raise ``NotImplementedError`` when set.
+``kernels`` (``False`` is the explicit plain-version override).  The
+mesh is not ported: ``mesh`` raises ``NotImplementedError`` when set.
 """
 from __future__ import annotations
 
@@ -32,7 +31,12 @@ class ServeConfig:
       policy, compute_dtype, weight_stationary, allow_coupled_numerics —
       numerics; collect_logits, collect_trace — observability;
       device — where the arena lives and programming runs;
-      kernels — False runs the kernels' plain versions even on the card.
+      kernels — False runs the kernels' plain versions even on the card;
+      refresh_every, clock — device-clock seconds between re-programs
+      (None = never) and the zero-argument device clock that ages drift
+      and drives the refresh (None = wall time since ``run()`` started);
+      spec_k, draft_policy — draft tokens a slot proposes each round (0 =
+      plain decoding) and the draft engine's policy (None = digital).
     """
 
     policy: MemPolicy | None = None
@@ -59,14 +63,8 @@ class ServeConfig:
     draft_policy: MemPolicy | None = None
 
     def __post_init__(self):
-        for knob, off in (
-            ("mesh", None), ("refresh_every", None), ("clock", None),
-            ("spec_k", 0), ("draft_policy", None),
-        ):
-            if getattr(self, knob) != off:
-                raise NotImplementedError(
-                    f"ServeConfig.{knob} is not ported to repro_torch yet"
-                )
+        if self.mesh is not None:
+            raise NotImplementedError("ServeConfig.mesh is not ported to repro_torch yet")
         if self.slots < 1:
             raise ValueError("slots must be >= 1")
         if self.max_len < 1:
@@ -93,6 +91,22 @@ class ServeConfig:
             raise ValueError(
                 f"max_queue_skip must be >= 0 (got {self.max_queue_skip}); "
                 "0 = strict submit-order FIFO admission"
+            )
+        if self.refresh_every is not None and self.refresh_every <= 0:
+            raise ValueError("refresh_every must be > 0 seconds (or None)")
+        if self.spec_k < 0:
+            raise ValueError(
+                f"spec_k must be >= 0 (got {self.spec_k}); 0 disables speculative decoding"
+            )
+        if self.spec_k >= self.max_len:
+            raise ValueError(
+                f"spec_k ({self.spec_k}) must be < max_len ({self.max_len}): a verify "
+                "chunk cannot exceed the per-slot KV budget"
+            )
+        if self.draft_policy is not None and self.spec_k == 0:
+            raise ValueError(
+                "draft_policy without spec_k > 0 does nothing: set spec_k to enable "
+                "speculative decoding"
             )
         if self.buckets is not None:
             buckets = tuple(self.buckets)

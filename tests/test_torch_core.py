@@ -242,8 +242,10 @@ def test_faithful_engine_matches_reference_engine():
 
 
 def test_unported_features_raise():
+    from repro_torch.core import prng
+
     with pytest.raises(NotImplementedError):
-        DPEConfig(drift=object())
+        prng.choice(prng.PRNGKey(0), 5, (2,), replace=True)
     tc = DPEConfig(backend="circuit")
     with pytest.raises(NotImplementedError):
         tdpe.resolve_backend(tc)

@@ -204,7 +204,7 @@ def test_serveloop_max_len_invariant():
     the block tables are 8 and 128 entries wide, the tokens are equal and
     every logit row is bit-equal."""
     cfg = get_smoke("qwen2-0.5b")
-    params = init_params(cfg, seed=0, device="cpu")
+    params = init_params(cfg, 0, device="cpu")
     policy = MemPolicy(default=DPEConfig(
         input_spec=INT8, weight_spec=INT8, array_size=(32, 32), mode="faithful",
         adc_mode="dynamic_row", backend="auto"))

@@ -175,3 +175,23 @@ def test_prefill_and_decode_logits_match_reference(model, kind):
     if kind == "mem_faithful":
         flips, n = _quantiser_flips(cfg, params_np, jpol)
         print(f"faithful: quantiser codes flipped by x*(1/s) in the reference: {flips} of {n}")
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_init_params_bitwise_to_reference(seed):
+    """The port draws the reference's initial weights: the same threefry
+    key tree and uniform draws, every leaf bit for bit (bitwise)."""
+    from repro_torch.core.prng import PRNGKey
+    from repro_torch.models import init_params
+
+    ref = jax.tree_util.tree_leaves_with_path(
+        j_init_params(j_get_smoke("qwen2-0.5b"), jax.random.PRNGKey(seed)))
+    got = init_params(get_smoke("qwen2-0.5b"), seed, device="cpu")
+    assert init_params(get_smoke("qwen2-0.5b"), PRNGKey(seed), device="cpu").keys() == got.keys()
+    for path, leaf in ref:
+        t = got
+        for p in path:
+            t = t[p.key]
+        a = np.asarray(leaf)
+        assert t.shape == a.shape, path
+        assert np.array_equal(t.numpy().view(np.uint32), a.view(np.uint32)), path

@@ -135,15 +135,20 @@ def test_serveloop_programming_per_step_equals_weight_stationary(model):
 
 
 def test_unported_serving_features_raise():
+    from repro_torch.core import dpe as tdpe
+    from repro_torch.models.config import SSMConfig
+
     with pytest.raises(NotImplementedError):
-        ServeConfig(spec_k=2)
-    with pytest.raises(NotImplementedError):
-        ServeConfig(refresh_every=1.0)
-    with pytest.raises(NotImplementedError):
-        Request(0, np.zeros(3, np.int32), 2, sampling=object())
+        ServeConfig(mesh=object())
     _, tpol = policies("mem_faithful")
-    coupled = MemPolicy(default=tpol.default.replace(adc_mode="dynamic"))
+    with pytest.raises(NotImplementedError):
+        tdpe.resolve_backend(tpol.default.replace(backend="circuit"))
     cfg = get_smoke("qwen2-0.5b")
+    with pytest.raises(NotImplementedError, match="side inputs"):
+        ServeLoop({}, cfg.replace(vision_prefix=4), ServeConfig(device="cpu"))
+    with pytest.raises(NotImplementedError, match="all-attention"):
+        ServeLoop({}, cfg.replace(family="ssm", ssm=SSMConfig()), ServeConfig(device="cpu"))
+    coupled = MemPolicy(default=tpol.default.replace(adc_mode="dynamic"))
     with pytest.raises(ValueError, match="couples"):
         ServeLoop({}, cfg, ServeConfig(policy=coupled, device="cpu"))
 

@@ -99,7 +99,7 @@ def main() -> int:
     if args.kernels:
         time_kernels(label, card)
     qcfg = get("qwen2-0.5b")
-    params = init_params(qcfg, seed=0, device="cuda")
+    params = init_params(qcfg, 0, device="cuda")
     sc = ServeConfig(policy=chip_smoke.faithful_policy(), slots=2, max_len=args.max_len[0],
                      prefill_chunk=32, block_size=16, compute_dtype=torch.float32,
                      device="cuda", collect_logits=True)
