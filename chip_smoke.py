@@ -64,13 +64,29 @@ Phases (any failure exits non-zero; nothing is caught):
    policy (power law, nu 0.05) with an injected clock and refreshes under
    live traffic (K6 once a slice plane per refresh, requests admitted
    before a swap bit-equal to the run without refresh, the plain
-   versions bit-equal, drift off equal to the greedy run);
+   versions bit-equal, drift off equal to the greedy run); then the
+   serve launcher, ``repro_torch.launch.serve.main``, at qwen2-0.5b's
+   full width (``launch``): the default mode (``make_policy
+   ("mem_faithful")``, batch 4, prompt 16, 16 new tokens) through the
+   dense ``greedy_generate`` (K1 and K6 launched, by the formula; its
+   tok/s and ITL), the same at 2 layers with ``--kernels on`` and
+   ``off`` and with ``--per_call`` (tokens and every logit row
+   bit-equal), ``--requests 8 --slots 4 --gen 8`` through the
+   ``ServeLoop`` (K1, K2, K3 launched, every request finished), and one
+   1,536-token prompt under ``digital`` through the dense path
+   (``attention_chunked``) and the ``ServeLoop`` (equal tokens,
+   first-token logits within max rel 1e-4); and K1 on one call of 1,536
+   rows at a q projection's shape, bit-equal to its plain version
+   (``check_k1_long``);
 5. run the seven paper applications (``repro_torch.apps``) at their
    reference defaults (the default ``DPEConfig`` backend ``xla``: the
    ``dynamic`` ADC range spans a whole call, K-means' 150 rows
    included), once with the kernels and once with their plain versions:
    the results must be equal, and K1 must have launched in each of the
-   five faithful ones.
+   five faithful ones;
+6. the circuit backend (``DPEConfig(backend="circuit")``, the IR-drop
+   crossbar solve) on the card against the same call on the CPU, rel-Fro
+   <= 1e-6, with its wall time and device launches (``check_circuit``).
 
 The line before the card line is a JSON object with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -928,6 +944,223 @@ def serve_drift(params, qcfg, sc, loop, reqs, rep, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 4c: the serve launcher (dense greedy_generate and the ServeLoop)
+# ---------------------------------------------------------------------------
+
+# launch/serve.py's defaults at qwen2-0.5b's full width, the main path
+LAUNCH = ["--policy", "mem_faithful", "--batch", "4", "--prompt_len", "16", "--gen", "16"]
+LONG_PROMPT = 1536  # a dense prefill through attention_chunked (past 1,024 keys)
+
+
+def path_launches() -> dict:
+    from repro_torch.kernels import ops
+
+    return {name: ops.COUNTERS[name].count for name in
+            ("fused_sliced_matmul", "paged_decode_attention", "paged_chunk_attention",
+             "program_noise")}
+
+
+def _need_launched(phase, launched, names):
+    for name in names:
+        if launched[name] <= 0:
+            raise AssertionError(f"{phase}: {name} never launched ({launched})")
+
+
+def dense_rate(params, qcfg, card):
+    """The default mode's generation (``make_policy("mem_faithful")``,
+    batch 4, prompt 16, 16 new tokens; the launcher's weights and
+    prompts), timed on the host clock around work that ends in a
+    synchronize: the prefill alone and the whole run, each the second of
+    two; ITL = (whole - prefill) / 16."""
+    from repro_torch.core.prng import PRNGKey, randint
+    from repro_torch.launch.dryrun import make_policy
+    from repro_torch.models import program_params
+    from repro_torch.serve import greedy_generate
+
+    pol = make_policy("mem_faithful")
+    prog = program_params(params, qcfg, pol, PRNGKey(0))
+    prompts = randint(PRNGKey(1), (4, 16), 0, qcfg.vocab, device="cuda")
+
+    def generate(n):
+        return greedy_generate(params, qcfg, prompts, n, policy=pol,
+                               compute_dtype=torch.float32, programmed=prog)
+
+    times = {0: [], 16: []}
+    for n in (0, 16, 0, 16, 0, 16):
+        t0 = time.monotonic()
+        generate(n)
+        torch.cuda.synchronize()
+        times[n].append(time.monotonic() - t0)
+    pre, whole = times[0][1], times[16][1]
+    itl = (whole - pre) / 16
+    print(f"dense greedy_generate, qwen2-0.5b mem_faithful (dynamic ADC), batch 4: prefill of "
+          f"64 rows {pre * 1e3:.1f} ms, 16 new tokens in {whole * 1e3:.1f} ms: "
+          f"{4 * 16 / whole:.2f} tok/s, ITL {itl * 1e3:.1f} ms (the third run: "
+          f"{(times[16][2] - times[0][2]) / 16 * 1e3:.1f} ms)  [{card}]")
+    print_busy("the dense default mode (the prefill and 16 decode steps)",
+               device_groups(lambda: generate(16)), whole * 1e3, card)
+
+
+def launch(params, qcfg, card, counters):
+    """``repro_torch.launch.serve.main`` at qwen2-0.5b's full width: the
+    default mode (``greedy_generate``, K1 and K6 launched); the same at
+    ``CUT_LAYERS`` layers with ``--kernels on`` and ``off`` (tokens and
+    every logit row bit-equal) and with ``--per_call`` (bit-equal to the
+    programmed run); ``--requests 8 --slots 4 --gen 8`` (K1, K2, K3
+    launched, every request finished); one 1,536-token prompt under
+    ``digital``, dense (``attention_chunked``) against the ``ServeLoop``
+    (K2 / K3): equal tokens, first-token logits within max rel 1e-4."""
+    from repro_torch.core.prng import PRNGKey, randint
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serve import Request, ServeConfig, ServeLoop
+
+    ops.reset_counters()
+    tokens = launcher.main(LAUNCH)
+    torch.cuda.synchronize()
+    launched = path_launches()
+    expect_k1 = 169 * 17  # the prefill and 16 decode steps: 7 projections x 24 layers + the head
+    expect_k6 = K6_PER_PROGRAMMING(qcfg, faithful_policy())
+    print(f"launch default mode: launches {launched}; expected K1 {expect_k1}, K6 {expect_k6}")
+    if (launched["fused_sliced_matmul"] != expect_k1 or launched["program_noise"] != expect_k6
+            or launched["paged_decode_attention"] or launched["paged_chunk_attention"]):
+        raise AssertionError(f"launch default mode: launches {launched}")
+    if tokens.shape != (4, 17) or not bool(((tokens >= 0) & (tokens < qcfg.vocab)).all()):
+        raise AssertionError(f"launch default mode: tokens {tokens}")
+    for name, n in launched.items():
+        counters[name] = counters.get(name, 0) + n
+    dense_rate(params, qcfg, card)
+
+    cut = LAUNCH + ["--layers", str(CUT_LAYERS)]
+    ops.reset_counters()
+    on = launcher.main(cut + ["--kernels", "on"], collect_logits=True)
+    k1_on = ops.COUNTERS["fused_sliced_matmul"].count
+    t0 = time.monotonic()
+    off = launcher.main(cut + ["--kernels", "off"], collect_logits=True)
+    torch.cuda.synchronize()
+    t_off = time.monotonic() - t0
+    if k1_on <= 0 or ops.COUNTERS["fused_sliced_matmul"].count != k1_on:
+        raise AssertionError("launch: --kernels on launched no K1, or --kernels off launched one")
+    per_call = launcher.main(cut + ["--per_call"], collect_logits=True)
+    torch.cuda.synchronize()
+    for label, other in (("--kernels off", off), ("--per_call", per_call)):
+        if not (torch.equal(on[0], other[0]) and torch.equal(on[1], other[1])):
+            raise AssertionError(f"launch at {CUT_LAYERS} layers: {label} differs from the "
+                                 "programmed run with the kernels")
+        print(f"launch at {CUT_LAYERS} layers: {label} gives the tokens and all "
+              f"{on[1].shape[0] * on[1].shape[1]} logit rows of the programmed run with the "
+              "kernels, bit for bit")
+    print(f"launch at {CUT_LAYERS} layers with the plain versions: {t_off:.1f} s  [{card}]")
+
+    ops.reset_counters()
+    rep = launcher.main(["--policy", "mem_faithful", "--requests", "8", "--slots", "4",
+                         "--gen", "8"])
+    torch.cuda.synchronize()
+    launched = path_launches()
+    print(f"launch --requests 8 --slots 4: launches {launched}; {rate_line(rep)}  [{card}]")
+    _need_launched("launch --requests", launched,
+                   ("fused_sliced_matmul", "paged_decode_attention", "paged_chunk_attention"))
+    for r in rep.results:
+        if r.finish_reason != "length" or len(r.tokens) != 8:
+            raise AssertionError(f"launch --requests: request {r.rid}: {r.finish_reason}")
+    for name, n in launched.items():
+        counters[name] = counters.get(name, 0) + n
+
+    # one long prompt, digital: the dense path against the paged one
+    n_new = 8
+    t0 = time.monotonic()
+    dense_tok, dense_logits = launcher.main(
+        ["--policy", "digital", "--batch", "1", "--prompt_len", str(LONG_PROMPT),
+         "--gen", str(n_new)], collect_logits=True)
+    torch.cuda.synchronize()
+    t_dense = time.monotonic() - t0
+    prompt = randint(PRNGKey(1), (1, LONG_PROMPT), 0, qcfg.vocab).numpy()[0]
+    loop = ServeLoop(params, qcfg, ServeConfig(
+        slots=1, max_len=LONG_PROMPT + n_new + 1, prefill_chunk=32, block_size=16,
+        compute_dtype=torch.float32, device="cuda", collect_logits=True))
+    ops.reset_counters()
+    t0 = time.monotonic()
+    res = loop.run([Request(0, prompt, n_new + 1)]).results[0]
+    torch.cuda.synchronize()
+    t_paged = time.monotonic() - t0
+    k2, k3 = ops.COUNTERS["paged_decode_attention"].count, ops.COUNTERS["paged_chunk_attention"].count
+    first = torch.from_numpy(res.logits[0]).cuda()
+    rel = rel_max(dense_logits[0, 0], first)
+    print(f"long prompt ({LONG_PROMPT} tokens, {n_new} new, digital): dense greedy_generate "
+          f"{t_dense:.2f} s, ServeLoop {t_paged:.2f} s ({k2} K2, {k3} K3 launches); tokens "
+          f"{dense_tok[0].tolist()} vs {res.tokens}; first-token logits max rel {rel:.3e}  "
+          f"[{card}]")
+    if dense_tok[0].tolist() != res.tokens or not rel <= 1e-4 or k2 <= 0 or k3 <= 0:
+        raise AssertionError("long prompt: the dense and the paged paths disagree")
+
+
+def check_k1_long(timer, card):
+    """K1 on one call of ``LONG_PROMPT`` rows at a ``mem_faithful`` q
+    projection's shape (896 -> 896, ``dynamic`` ADC over 128-row tiles),
+    bit-equal to its plain version; the kernel timed (CUDA events), the
+    plain version once (host clock, synchronized)."""
+    from repro_torch.core.dpe import prepare_weight
+    from repro_torch.core.prng import PRNGKey
+    from repro_torch.kernels import sliced_matmul as sm
+    from repro_torch.launch.dryrun import make_policy
+
+    cfg = make_policy("mem_faithful").default
+    g = torch.Generator(device="cuda").manual_seed(15)
+    pw = prepare_weight(torch.randn((896, 896), generator=g, device="cuda") * 896**-0.5, cfg,
+                        PRNGKey(15))
+    x = torch.randn((LONG_PROMPT, 896), generator=g, device="cuda")
+    kw = _k1_kw(cfg)
+    y = sm.fused_sliced_matmul_cuda(x, pw.slices, pw.scale, **kw)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    yp = sm.fused_sliced_matmul_ref(x, pw.slices, pw.scale, **kw)
+    torch.cuda.synchronize()
+    t_plain = (time.monotonic() - t0) * 1e3
+    if not bool(torch.isfinite(y).all()) or not torch.equal(y, yp):
+        raise AssertionError(f"K1 at M={LONG_PROMPT}: max diff {float((y - yp).abs().max())} "
+                             "to its plain version")
+    t = timer(lambda: sm.fused_sliced_matmul_cuda(x, pw.slices, pw.scale, **kw))
+    _, kp, np_ = pw.slices.shape
+    nbytes = 4 * (pw.slices.numel() + pw.scale.numel() + x.numel() + LONG_PROMPT * np_)
+    flops = 2 * cfg.input_spec.n_slices * cfg.weight_spec.n_slices * LONG_PROMPT * kp * np_
+    b, by = bound_ms(nbytes, flops)
+    print(f"K1 at M={LONG_PROMPT} (q projection 896x896, dynamic ADC, 128-row tiles) bit-equal "
+          f"to its plain version: kernel {t:.4f} ms, plain {t_plain:.1f} ms, bound {b:.4f} ms "
+          f"({by}), {b / t:.1%} of it  [{card}]")
+    return dict(ms=t, plain_ms=t_plain, bound_ms=b, bound_by=by)
+
+
+def check_circuit(card):
+    """The circuit backend on the card (``DPEConfig(backend="circuit")``,
+    M 4, K = N = 64, 32x32 arrays, noise keyed) against the same call on
+    the CPU: rel-Fro <= 1e-6; its wall time and device launches."""
+    from repro_torch.core import DPEConfig, dpe_matmul
+    from repro_torch.core.prng import PRNGKey
+
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((4, 64)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((64, 64)) * 0.1).astype(np.float32))
+    cfg = DPEConfig(array_size=(32, 32), backend="circuit")
+    want = dpe_matmul(x, w, cfg, PRNGKey(1))
+    xc, wc = x.cuda(), w.cuda()
+    dpe_matmul(xc, wc, cfg, PRNGKey(1))
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    got = dpe_matmul(xc, wc, cfg, PRNGKey(1))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    groups = device_groups(lambda: dpe_matmul(xc, wc, cfg, PRNGKey(1)))
+    launches = sum(n for _, n in groups.values())
+    busy = sum(ms for ms, _ in groups.values())
+    err = rel_fro(got.cpu(), want)
+    print(f"circuit dpe_matmul (M 4, K = N = 64, 32x32 arrays, 20 sweeps): card vs CPU rel-Fro "
+          f"{err:.3e}; {wall * 1e3:.1f} ms wall, {launches} device launches, {busy:.1f} ms "
+          f"device busy  [{card}]")
+    if not bool(torch.isfinite(got).all()) or not err <= 1e-6:
+        raise AssertionError(f"circuit backend: the card differs from the CPU by {err}")
+
+
+# ---------------------------------------------------------------------------
 # phase 3b: K1 at every crossbar tile and preset; the paper's default DPE
 # ---------------------------------------------------------------------------
 
@@ -1381,26 +1614,19 @@ KERNEL_OF = (("sliced_matmul_kernel", "K1"), ("paged_decode_kernel", "K2"),
              ("paged_chunk_kernel", "K3"))
 
 
-def device_busy(loop, reqs, rep, card):
-    """Where the served path's time goes: the requests of ``rep`` (the
-    timed run) run once more under ``torch.profiler``, whose device events
-    (kernels, copies, fills) are summed per group.  The profiled run is
-    not timed (the profiler slows the host side); the device work is the
-    same in both runs, so busy / ``rep.wall_s`` is the device's busy
-    share."""
+def device_groups(fn) -> dict:
+    """Device time (ms) and launches of ``fn()`` per kernel group (K1-K3
+    by name, every other kernel, copy and fill as ``"other: <name>"``),
+    from ``torch.profiler``'s device events; empty where the profiler saw
+    none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels import ops
-
-    wall_ms = rep.wall_s * 1e3
-    ops.reset_counters()
     # device activity only: the host-side events of a speculative run
     # (hundreds of thousands of eager ops) take a minute to walk
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        loop.run(reqs)
+        fn()
         torch.cuda.synchronize()
-    k1_calls = ops.COUNTERS["fused_sliced_matmul"].count
     groups: dict = {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
@@ -1408,24 +1634,46 @@ def device_busy(loop, reqs, rep, card):
         g = next((k for pat, k in KERNEL_OF if pat in e.name), "other: " + e.name[:60])
         ms, n = groups.get(g, (0.0, 0))
         groups[g] = (ms + e.self_device_time_total / 1e3, n + 1)
+    return groups
+
+
+def print_busy(what, groups, wall_ms, card, k1_calls=None):
+    """Busy time over ``wall_ms`` (a timed run of the same work), K1-K3's
+    share and the largest other device work."""
     if not groups:
-        print("device time of the served path: not measured (the profiler saw no device events)")
+        print(f"device time of {what}: not measured (the profiler saw no device events)")
         return
     busy = sum(ms for ms, _ in groups.values())
-    print(f"device time of the served path ({rep.prefill_chunks_run} prefill chunks, "
-          f"{rep.decode_steps} decode steps): busy {busy:.1f} ms of {wall_ms:.1f} ms wall, "
+    print(f"device time of {what}: busy {busy:.1f} ms of {wall_ms:.1f} ms wall, "
           f"idle share {1 - busy / wall_ms:.3f}  [{card}]")
     other = sorted(((ms, n, g) for g, (ms, n) in groups.items() if g.startswith("other")),
                    reverse=True)
     for g in ("K1", "K2", "K3"):
         ms, n = groups.get(g, (0.0, 0))
         print(f"  {g}: {ms:.2f} ms device in {n} kernel launches")
-    n = groups.get("K1", (0.0, 0))[1]
-    print(f"  K1: {k1_calls} calls, {n / max(k1_calls, 1):.2f} kernel launches per call")
+    if k1_calls is not None:
+        n = groups.get("K1", (0.0, 0))[1]
+        print(f"  K1: {k1_calls} calls, {n / max(k1_calls, 1):.2f} kernel launches per call")
     print(f"  other device work: {sum(o[0] for o in other):.2f} ms in "
           f"{sum(o[1] for o in other)} launches; largest:")
     for ms, n, g in other[:6]:
         print(f"    {ms:.2f} ms in {n} launches  {g[7:]}")
+
+
+def device_busy(loop, reqs, rep, card):
+    """Where the served path's time goes: the requests of ``rep`` (the
+    timed run) run once more under ``torch.profiler``, whose device events
+    (kernels, copies, fills) are summed per group.  The profiled run is
+    not timed (the profiler slows the host side); the device work is the
+    same in both runs, so busy / ``rep.wall_s`` is the device's busy
+    share."""
+    from repro_torch.kernels import ops
+
+    ops.reset_counters()
+    groups = device_groups(lambda: loop.run(reqs))
+    print_busy(f"the served path ({rep.prefill_chunks_run} prefill chunks, {rep.decode_steps} "
+               "decode steps)", groups, rep.wall_s * 1e3, card,
+               k1_calls=ops.COUNTERS["fused_sliced_matmul"].count)
 
 
 def main() -> int:
@@ -1477,11 +1725,16 @@ def main() -> int:
     sreqs, srep = timed("serve_sampled", serve_sampled, params, qcfg, sc, loop, reqs, rep, card)
     timed("serve_spec", serve_spec, params, qcfg, sc, loop, reqs, rep, sreqs, srep, card)
     timed("serve_drift", serve_drift, params, qcfg, sc, loop, reqs, rep, card)
-    del params, loop
+    del loop
+    torch.cuda.empty_cache()
+    timed("launch", launch, params, qcfg, card, counters)
+    summary["k1_long"] = timed("check_k1_long", check_k1_long, timer, card)
+    del params
     torch.cuda.empty_cache()
     counters["sliced_matmul"] = summary["sliced_matmul"]["launches"]
     counters["flash_attention"] = summary["flash_attention"]["launches"]
     timed("run_apps", run_apps, card)
+    timed("check_circuit", check_circuit, card)
 
     sources = {
         "fused_sliced_matmul": ("src/repro_torch/csrc/sliced_matmul.cuh",

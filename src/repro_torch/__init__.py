@@ -1,8 +1,10 @@
 """PyTorch/CUDA port of the MemIntelli reproduction (``repro``).
 
 The JAX package ``repro`` is the reference; this package mirrors its
-module layout (``core``, ``kernels``, ``models``, ``configs``, ``serve``)
-so each port module sits at the same path as its counterpart.  It imports
+module layout (``core``, ``kernels``, ``models``, ``configs``, ``serve``,
+``launch``, ``apps``, ``examples``) so each port module sits at the same
+path as its counterpart.  ``python -m repro_torch.launch.serve`` is the
+serve launcher.  It imports
 ``torch``, ``numpy`` and the standard library only — never ``jax`` and
 nothing of ``repro``.
 

@@ -14,10 +14,12 @@ Faithful layers go through the fused sliced matmul of
 tensor, its plain version on the CPU.  The backend sets the row tile of
 the ``dynamic`` ADC range: the whole call for ``xla`` (the reference's
 vectorized engine), 128 rows for ``auto`` / ``pallas`` (its kernel).
+The ``circuit`` backend solves every slice-pair crossbar operation
+through the IR-drop circuit model (:func:`_circuit_matmul`,
+:mod:`.crossbar`), plain PyTorch on either device.
 :func:`_faithful_matmul` is the vectorized plain engine and
 :func:`_faithful_matmul_loop` the seed slice-pair loop, kept verbatim;
-the tests hold the engines against each other and the reference.  The
-circuit backend is not ported yet.
+the tests hold the engines against each other and the reference.
 """
 from __future__ import annotations
 
@@ -28,6 +30,8 @@ import torch
 
 from repro_torch.kernels import ops as _kops
 
+from .crossbar import solve_crossbar
+from .device import slice_to_conductance
 from .drift import drift_now
 from .engine import DPEConfig
 from .quant import adc_quantize, block_scale, dac_quantize, div, quantize
@@ -313,6 +317,53 @@ def fake_quant_input(x: torch.Tensor, cfg: DPEConfig) -> torch.Tensor:
     )
 
 
+V_READ = 0.2  # word-line read voltage at full scale (V)
+
+
+def _circuit_matmul(xs, sx, ws, sw, cfg: DPEConfig) -> torch.Tensor:
+    """Every slice-pair crossbar operation solved through the IR-drop
+    circuit model instead of the ideal dot product: slice values map to
+    word-line voltages (``V_READ`` at full scale) and conductances, each
+    physical (bk x bn) tile of each K-block is solved for every input row
+    (:func:`~repro_torch.core.crossbar.solve_crossbar`, 2.93 Ω, 20
+    sweeps), the sensed bit-line currents go back to slice units (the
+    conductance offset ``LGS`` removed) and are recombined digitally.
+    No ADC: the reference's circuit path has none.
+
+    xs: (Sx, M, Kp); sx: (M, nk); ws: (Sw, Kp, Np); sw: (nk, nn).
+    Returns (M, Np) float32."""
+    bk, bn = cfg.array_size
+    sxn, m, kp = xs.shape
+    swn, _, np_ = ws.shape
+    nk, nn = kp // bk, np_ // bn
+    sigx = slice_significances(cfg.input_spec)
+    sigw = slice_significances(cfg.weight_spec)
+    # (nk, M, Np): rows carry sx, columns sw repeated over a tile's bit lines
+    kb_scale = sx.t()[:, :, None] * torch.repeat_interleave(sw, bn, dim=1)[:, None, :]
+    out = torch.zeros((m, np_), dtype=torch.float32, device=xs.device)
+    for i in range(sxn):
+        vmax_x = 2.0 ** cfg.input_spec.bits[i] - 1.0
+        # every K-block at once: (nk, M, bk) word-line voltages
+        vin = div(xs[i].reshape(m, nk, bk).permute(1, 0, 2), vmax_x) * V_READ
+        col_sum = (div(vin, V_READ) * vmax_x).sum(dim=2, keepdim=True)  # (nk, M, 1)
+        for j in range(swn):
+            bits_w = cfg.weight_spec.bits[j]
+            dg = (cfg.hgs - cfg.lgs) / (2.0**bits_w - 1.0)
+            # one physical tile per (K-block, N-block): word-line IR-drop
+            # does not span separate arrays
+            g_tiles = slice_to_conductance(
+                ws[j].reshape(nk, bk, nn, bn).permute(0, 2, 1, 3), bits_w, cfg.hgs, cfg.lgs,
+            )  # (nk, nn, bk, bn)
+            res = solve_crossbar(g_tiles[:, :, None], vin[:, None], 2.93, 20).i_out
+            # (nk, nn, M, bn) -> (nk, M, Np), back to slice units
+            y = div(res.permute(0, 2, 1, 3).reshape(nk, m, np_), V_READ) * vmax_x
+            # remove the conductance offset: I = V (LGS + v_w dg)
+            y = div(y - col_sum * cfg.lgs, dg)
+            pair = (y * kb_scale).sum(dim=0)
+            out = out + float(sigx[i] * sigw[j]) * pair
+    return out
+
+
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with the reference's dtype rule: bf16 operands are
     multiplied with float32 accumulation and the product rounded to
@@ -323,14 +374,13 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def resolve_backend(cfg: DPEConfig) -> str:
-    """Concrete engine for ``cfg``: ``"fused"`` (the fused sliced matmul
-    of :mod:`repro_torch.kernels.ops`, which picks the kernel or its
-    plain version by tensor device) for faithful layers, else ``"xla"``
-    (the plain vectorized engines)."""
+    """Concrete engine for ``cfg``: ``"circuit"`` (the IR-drop circuit
+    model) when asked for, else ``"fused"`` (the fused sliced matmul of
+    :mod:`repro_torch.kernels.ops`, which picks the kernel or its plain
+    version by tensor device) for faithful layers and ``"xla"`` (the
+    plain vectorized engines) for the others."""
     if cfg.backend == "circuit":
-        raise NotImplementedError(
-            "the circuit backend is not ported to repro_torch yet"
-        )
+        return "circuit"
     return "fused" if cfg.mode == "faithful" else "xla"
 
 
@@ -372,7 +422,8 @@ def dpe_matmul_prepared(
     lead = x.shape[:-1]
     xm = x.reshape(-1, x.shape[-1])
     f = _drift_factor(cfg, pw.t_prog, t_now)
-    if resolve_backend(cfg) == "fused":
+    backend = resolve_backend(cfg)
+    if backend == "fused":
         y = _kops.fused_sliced_matmul(
             xm.to(torch.float32), pw.slices, pw.scale,
             input_spec=cfg.input_spec, weight_spec=cfg.weight_spec,
@@ -383,7 +434,10 @@ def dpe_matmul_prepared(
         return y[:, :n].reshape(*lead, n)
     slices = pw.slices if f is None else pw.slices * torch.tensor(f, device=x.device)
     xs, sx = prepare_input(xm, cfg)
-    y = _fast_matmul(xs, sx, slices, pw.scale, cfg)
+    if backend == "circuit":
+        y = _circuit_matmul(xs, sx, slices, pw.scale, cfg)
+    else:
+        y = _fast_matmul(xs, sx, slices, pw.scale, cfg)
     return y[:, :n].reshape(*lead, n)
 
 

@@ -34,7 +34,8 @@ class DPEConfig:
     * ``"auto"`` / ``"pallas"`` — the reference's kernel path: the same
       fused sliced matmul, with the ``"dynamic"`` range over each
       128-row tile (the two differ only past 128 rows);
-    * ``"circuit"`` — the IR-drop circuit model, not ported yet.
+    * ``"circuit"`` — the IR-drop circuit model (:mod:`.crossbar`): every
+      slice-pair product solved as a resistive network, no ADC.
     """
 
     hgs: float = 1e-5

@@ -6,13 +6,13 @@ the contents of the reference's ``jax.random.PRNGKey`` key.  Key
 arithmetic (:func:`PRNGKey`, :func:`fold_in`, :func:`split`) runs on the
 host in exact integer arithmetic and gives the reference's keys bit for
 bit.  Bulk draws (:func:`random_bits`, :func:`uniform`, :func:`normal`,
-:func:`permutation`) run on the device of the caller's choice, on
+:func:`randint`, :func:`permutation`) run on the device of the caller's choice, on
 ``int64`` tensors holding 32-bit values, in chunks of ``_CHUNK``
 elements, so a draw for a 136 M-element weight never holds more than a
 few chunk-sized temporaries.
 
-``random_bits``, ``uniform``, ``normal`` and ``gumbel`` equal JAX's bit
-for bit (``tests/test_torch_prng.py``, ``tests/test_torch_sampling.py``):
+``random_bits``, ``uniform``, ``normal``, ``gumbel`` and ``randint`` equal
+JAX's bit for bit (``tests/test_torch_prng.py``, ``tests/test_torch_sampling.py``):
 ``normal`` is ``sqrt(2) * erf_inv(u)`` with XLA's float32 ``erf_inv``
 and ``gumbel`` is ``-log(-log(u))`` with its ``log`` (:mod:`.xmath`).  Every step is an
 integer or an IEEE float32 / float64 operation, so the card draws the
@@ -36,6 +36,7 @@ __all__ = [
     "normal",
     "gumbel",
     "categorical",
+    "randint",
     "permutation",
     "choice",
 ]
@@ -187,6 +188,25 @@ def categorical(key, logits: torch.Tensor) -> torch.Tensor:
     first index of ``max(logits + gumbel(key, logits.shape))``."""
     g = gumbel(key, logits.shape, device=logits.device)
     return torch.argmax(g + logits.float(), dim=-1)
+
+
+def randint(key, shape, minval: int, maxval: int, device="cpu") -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32): two
+    32-bit draws from ``split(key)``, ``higher`` and ``lower``; with
+    ``span = maxval - minval`` (1 where ``maxval <= minval``) and
+    ``mult = (2**16 mod span)**2 mod 2**32 mod span``, the value is
+    ``minval + ((higher mod span) * mult + lower mod span) mod 2**32 mod
+    span``, every step in uint32 arithmetic as JAX's ``_randint``."""
+    lo_v, hi_v = int(minval), int(maxval)
+    i32 = np.iinfo(np.int32)
+    if not (i32.min <= lo_v <= i32.max and i32.min <= hi_v <= i32.max):
+        raise ValueError(f"randint bounds [{lo_v}, {hi_v}) leave the int32 range")
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, shape, device), random_bits(k2, shape, device)
+    span = (hi_v - lo_v) & _M32 if hi_v > lo_v else 1
+    mult = ((2**16 % span) ** 2 & _M32) % span
+    off = (((higher % span) * mult + lower % span) & _M32) % span
+    return (off + lo_v).to(torch.int32)
 
 
 def permutation(key, n: int, device="cpu") -> torch.Tensor:

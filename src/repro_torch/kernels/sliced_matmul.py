@@ -121,10 +121,13 @@ def fused_sliced_matmul_ref(
     drift: float = 1.0,
 ) -> torch.Tensor:
     """Plain version of the fused kernel (K zero-padded to Kp), on the
-    slices times the float32 ``drift`` factor.  Only
-    ``dynamic`` ranging depends on the row tiling: there M is padded with
-    zero rows to whole ``bm`` tiles, as the reference wrapper does; the
-    row-independent modes need no padding.  Returns (M, Np) float32."""
+    slices times the float32 ``drift`` factor.  Only ``dynamic`` ranging
+    depends on the row tiling: its rows share a range in tiles of ``bm``.
+    The reference wrapper pads M with zero rows to whole tiles; here a
+    partial last tile is ranged over its real rows alone, which gives the
+    same bits (a zero row's partial sums are exact zeros, and a range
+    clamped from below at 1e-30 cannot rise by a zero) at a fraction of
+    the cost for a call of a few rows.  Returns (M, Np) float32."""
     bk, _ = array_size
     m, k = x.shape
     kp = ws.shape[1]
@@ -132,18 +135,19 @@ def fused_sliced_matmul_ref(
         raise ValueError(f"K={k} inconsistent with prepared Kp={kp}")
     if m == 0:
         return x.new_zeros((0, ws.shape[2]), dtype=torch.float32)
-    tiled = adc_mode == "dynamic" and radc > 1
-    padm = (-m) % bm if tiled else 0
-    x = torch.nn.functional.pad(x.to(torch.float32), (0, kp - k, 0, padm))
+    x = torch.nn.functional.pad(x.to(torch.float32), (0, kp - k))
     xs, sx = _prep_input(x, input_spec, bk, rdac)
     if drift != 1.0:
         ws = ws * torch.tensor(np.float32(drift), device=ws.device)
-    y = sliced_matmul_ref(
-        xs, sx, ws, sw, input_spec=input_spec, weight_spec=weight_spec,
-        array_size=array_size, radc=radc, adc_mode=adc_mode,
-        bm=bm if tiled else m,
-    )
-    return y[:m]
+    kw = dict(input_spec=input_spec, weight_spec=weight_spec, array_size=array_size,
+              radc=radc, adc_mode=adc_mode)
+    tiled = adc_mode == "dynamic" and radc > 1
+    full = m - m % bm if tiled else m
+    parts = [sliced_matmul_ref(xs[:, :full], sx[:full], ws, sw, bm=bm if tiled else m,
+                               **kw)] if full else []
+    if full < m:
+        parts.append(sliced_matmul_ref(xs[:, full:], sx[full:], ws, sw, bm=m - full, **kw))
+    return torch.cat(parts) if len(parts) > 1 else parts[0]
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,9 +1,12 @@
-"""Dense-decoder model substrate of the port (paged serving slice)."""
+"""Dense-decoder model substrate of the port: init, ``forward``, the
+dense and the paged KV caches and the serving steps."""
 from .config import ArchConfig, EncoderConfig, MoEConfig, SSMConfig
 from .model import (
     copy_paged_block,
     decode_step,
     decode_verify_step,
+    forward,
+    init_cache,
     init_paged_cache,
     init_params,
     prefill_chunk_step,
@@ -17,6 +20,8 @@ __all__ = [
     "SSMConfig",
     "EncoderConfig",
     "init_params",
+    "forward",
+    "init_cache",
     "init_paged_cache",
     "copy_paged_block",
     "decode_step",

@@ -1,12 +1,16 @@
-"""Model entry points of the serving slice: init, the paged KV cache, the
-decode step and the chunked-prefill step (port of the dense-decoder parts
-of ``repro/models/model.py``).
+"""Model entry points: init, ``forward`` (train / prefill), the dense and
+the paged KV caches, the decode step (dense or paged), the chunked
+prefill step and the speculative verify step (port of the
+dense-decoder parts of ``repro/models/model.py``).
 
-The reference scans each segment of identical layers with ``lax.scan``;
-here that is a Python loop over the stacked layers.  The ``lax.cond``
-that skips the vocab head on non-final prefill chunks is a host ``if``.
-The cache is updated in place (the reference donates it).  The layer
-key chain is the reference's: ``fold_in(fold_in(rng, segment), layer)``.
+The reference scans each segment of identical layers with ``lax.scan``
+(rematerialised per step in ``forward``); here that is a Python loop over
+the stacked layers, with no checkpointing (``remat`` is accepted and does
+nothing).  The ``lax.cond`` that skips the vocab head on non-final
+prefill chunks is a host ``if``.  Caches are updated in place (the
+reference donates them).  The layer key chain is the reference's:
+``fold_in(fold_in(rng, segment), layer)``.  Vision prefixes, encoders,
+SSM, MoE and hybrid layers raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -26,11 +30,19 @@ from .common import (
     uniform_init,
 )
 from .config import ArchConfig
-from .transformer import block_chunk, block_decode, block_verify, init_block_params
+from .transformer import (
+    block_chunk,
+    block_decode,
+    block_forward,
+    block_verify,
+    init_block_params,
+)
 
 __all__ = [
     "segments",
     "init_params",
+    "forward",
+    "init_cache",
     "init_paged_cache",
     "copy_paged_block",
     "decode_step",
@@ -76,6 +88,87 @@ def init_params(cfg: ArchConfig, key=0, dtype=torch.float32, device="cuda"):
             steps,
         )
     return params
+
+
+def _embed_inputs(params, cfg, batch, compute_dtype):
+    if cfg.vision_prefix or "patch_embeds" in batch:
+        raise NotImplementedError("vision prefixes are not ported to repro_torch yet")
+    return params["embed"]["w"].to(compute_dtype)[batch["tokens"].long()]
+
+
+def forward(
+    params,
+    cfg: ArchConfig,
+    batch: dict,
+    *,
+    policy: MemPolicy = DIGITAL,
+    rng=None,
+    mode: str = "train",
+    compute_dtype=torch.bfloat16,
+    remat: bool = True,
+    programmed=None,
+    kernels: bool = True,
+):
+    """Hidden states (B, S, d) after the final norm of ``batch["tokens"]``
+    (B, S); with ``mode == "prefill"`` also the per-segment serving
+    states ``{"seg{i}": {"k", "v"}}``, each (steps, B, S, KV, hd).
+    ``programmed`` is weight-stationary state from
+    :func:`repro_torch.models.programmed.program_params` (no layer
+    re-programs); without it every hardware layer programs its weight
+    on the fly from its key.  Attention uses the ``"tri"`` causal
+    schedule past 1,024 keys, as the reference's ``forward``."""
+    rng = PRNGKey(0) if rng is None else rng
+    if cfg.encoder is not None:
+        raise NotImplementedError("encoder-decoder models are not ported to repro_torch yet")
+    x = _embed_inputs(params, cfg, batch, compute_dtype)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    prog_blocks = pget(programmed, "blocks")
+    all_states = {}
+    for si, (start, steps, tmpl) in enumerate(segments(cfg)):
+        seg_p = params["blocks"][f"seg{si}"]
+        prog_seg = pget(prog_blocks, f"seg{si}")
+        rng_s = fold_in(rng, si)
+        ks, vs = [], []
+        for idx in range(steps):
+            x, st = block_forward(
+                layer_slice(seg_p, idx), x, cfg, tmpl, policy=policy,
+                rng=fold_in(rng_s, idx), positions=positions, attn_schedule="tri",
+                prepared=None if prog_seg is None else layer_slice(prog_seg, idx),
+                kernels=kernels,
+            )
+            if mode == "prefill":
+                ks.append(st["k"])
+                vs.append(st["v"])
+        all_states[f"seg{si}"] = (
+            {"k": torch.stack(ks), "v": torch.stack(vs)} if mode == "prefill" else None
+        )
+    x = norm(x, params["final_norm"], cfg.norm)
+    if mode == "prefill":
+        return x, all_states
+    return x
+
+
+def _seg_cache(cfg, tmpl, steps, batch, max_len, dtype, device):
+    """One segment's dense K / V, stacked over its layers (attention
+    layers only: the SSM state and hybrid groups are not ported)."""
+    if cfg.family == "hybrid" or cfg.layer_kind(tmpl)[0] != "attn":
+        raise NotImplementedError("SSM / hybrid serving state is not ported to repro_torch yet")
+    shape = (steps, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+               device="cuda"):
+    """The DENSE serving cache: ``pos`` (batch,) int32 and per segment
+    ``{"k", "v"}`` of shape (steps, batch, max_len, KV, hd)."""
+    if cfg.encoder is not None:
+        raise NotImplementedError("encoder-decoder models are not ported to repro_torch yet")
+    cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=device), "blocks": {}}
+    for si, (start, steps, tmpl) in enumerate(segments(cfg)):
+        cache["blocks"][f"seg{si}"] = _seg_cache(cfg, tmpl, steps, batch, max_len, dtype, device)
+    return cache
 
 
 def init_paged_cache(
@@ -126,7 +219,7 @@ def copy_paged_block(cache: dict, src: int, dst: int) -> dict:
 def _layers(params, cfg, cache, programmed, rng):
     """Yield ``(params, programmed, kv_state, rng, template_idx)`` of
     every layer in order (the reference's scan over stacked segments);
-    ``kv_state`` holds views of the layer's pools."""
+    ``kv_state`` holds views of the layer's dense K / V rows or pools."""
     prog_blocks = pget(programmed, "blocks")
     for si, (start, steps, tmpl) in enumerate(segments(cfg)):
         seg_p = params["blocks"][f"seg{si}"]
@@ -154,11 +247,11 @@ def decode_step(
 ):
     """One serving step: consume ``tokens``, return (logits (B, V) f32,
     cache).  Rows where ``active`` is False neither advance ``pos`` nor
-    touch live KV.  The paged cache is updated in place."""
+    touch live KV.  The cache — the dense :func:`init_cache` tree or the
+    paged :func:`init_paged_cache` tree, told apart by its
+    ``block_tables`` — is updated in place."""
     rng = PRNGKey(0) if rng is None else rng
     block_tables = cache.get("block_tables")
-    if block_tables is None:
-        raise NotImplementedError("repro_torch serves the paged KV cache only")
     x1 = params["embed"]["w"].to(compute_dtype)[tokens.long()]
     pos = cache["pos"]
     inc = 1 if active is None else active.to(torch.int32)

@@ -1,5 +1,8 @@
-"""Decoder blocks for the paged serving steps (port of the attention-layer
-parts of ``repro/models/transformer.py``).
+"""Decoder blocks (port of the attention-layer parts of
+``repro/models/transformer.py``): a layer on a whole sequence
+(:func:`block_forward`, train / prefill), one decode step against a
+dense or a paged cache (:func:`block_decode`), a chunk of chunked
+prefill and a speculative verify chunk against the paged pool.
 
 Only homogeneous all-attention decoders are ported: MoE, SSM and hybrid
 layers raise ``NotImplementedError``.  Layer names (``L.attn.*``) and the
@@ -13,6 +16,7 @@ import torch
 from repro_torch.core.prng import split
 
 from .attention import (
+    attention_block,
     chunk_attention_block,
     decode_attention_block,
     init_attn_params,
@@ -20,7 +24,7 @@ from .attention import (
 )
 from .common import activation, dense, make_dense_params, make_norm_params, norm, pget
 
-__all__ = ["init_block_params", "block_decode", "block_chunk", "block_verify"]
+__all__ = ["init_block_params", "block_forward", "block_decode", "block_chunk", "block_verify"]
 
 
 def _attn_only(cfg, layer_idx: int) -> None:
@@ -63,10 +67,30 @@ def _ffn_forward(p, x, cfg, *, policy, rng, name, prepared=None, kernels=True):
     return dense(mlp["wo"], h, name=f"{name}.mlp.wo", prepared=pget(prog, "wo"), **kw)
 
 
+def block_forward(p, x, cfg, template_idx, *, policy, rng, positions,
+                  attn_schedule="masked", prepared=None, kernels=True):
+    """One attention layer on a full sequence x (B, S, d) (the
+    reference's ``block_forward`` with its ``_layer_forward``): returns
+    (x, {"k", "v"}), the layer's roped K / V for the serving cache."""
+    _attn_only(cfg, template_idx)
+    name = "L.attn"
+    h = norm(x, p["norm1"], cfg.norm)
+    y, (k, v) = attention_block(
+        p["attn"], h, cfg, policy=policy, rng=rng, positions=positions, name=name,
+        attn_schedule=attn_schedule, prepared=pget(prepared, "attn"), kernels=kernels,
+    )
+    x = x + y
+    h = norm(x, p["norm2"], cfg.norm)
+    x = x + _ffn_forward(p, h, cfg, policy=policy, rng=rng, name=name, prepared=prepared,
+                         kernels=kernels)
+    return x, {"k": k, "v": v}
+
+
 def block_decode(p, x1, cfg, template_idx, *, policy, rng, pos, state,
                  prepared=None, active=None, block_tables=None, kernels=True):
     """One attention layer of a decode step: x1 (B, d) -> (x1, state);
-    the layer's KV pools in ``state`` are updated in place."""
+    the layer's dense K / V rows or paged pools in ``state`` are updated
+    in place."""
     _attn_only(cfg, template_idx)
     name = "L.attn"
     h = norm(x1, p["norm1"], cfg.norm)

@@ -1,5 +1,6 @@
 """Public serving surface of the port: build a :class:`ServeConfig`,
-hand it to :class:`ServeLoop`, read the :class:`ServeReport`."""
+hand it to :class:`ServeLoop`, read the :class:`ServeReport`; or decode
+one lockstep batch with :func:`greedy_generate`."""
 from .batching import (
     Request,
     RequestQueue,
@@ -9,7 +10,14 @@ from .batching import (
     default_buckets,
 )
 from .config import ServeConfig
-from .engine import make_chunk_prefill, make_decode_step, make_verify_step
+from .engine import (
+    greedy_generate,
+    make_chunk_prefill,
+    make_decode_step,
+    make_prefill_step,
+    make_slot_prefill,
+    make_verify_step,
+)
 from .prefix_cache import AdmitPlan, PrefixCache
 from .sampling import GREEDY, SamplingParams, request_keys, sample_row, sample_rows
 
@@ -23,6 +31,9 @@ __all__ = [
     "AdmitPlan",
     "RequestQueue",
     "default_buckets",
+    "greedy_generate",
+    "make_prefill_step",
+    "make_slot_prefill",
     "make_chunk_prefill",
     "make_decode_step",
     "make_verify_step",

@@ -246,6 +246,5 @@ def test_unported_features_raise():
 
     with pytest.raises(NotImplementedError):
         prng.choice(prng.PRNGKey(0), 5, (2,), replace=True)
-    tc = DPEConfig(backend="circuit")
-    with pytest.raises(NotImplementedError):
-        tdpe.resolve_backend(tc)
+    # the circuit backend is ported (tests/test_torch_crossbar.py)
+    assert tdpe.resolve_backend(DPEConfig(backend="circuit")) == "circuit"

@@ -21,6 +21,11 @@ def test_port_modules_import_neither_jax_nor_repro():
         print(len(names), bad)
         assert not bad, bad
         assert len(names) >= 25, names
+        new = {"repro_torch.core.crossbar", "repro_torch.launch.dryrun",
+               "repro_torch.launch.serve", "repro_torch.examples.quickstart",
+               "repro_torch.examples.continuous_batching",
+               "repro_torch.examples.serve_memristive_lm"}
+        assert new <= set(names), sorted(new - set(names))
         """
     )
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))

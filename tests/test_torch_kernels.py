@@ -243,3 +243,32 @@ def test_paged_token_write_matches_reference():
         t = t_write(torch.from_numpy(pool.copy()), torch.from_numpy(bt), torch.from_numpy(pos),
                     torch.from_numpy(val), None if active is None else torch.from_numpy(active))
         assert np.array_equal(np.asarray(j), t.numpy())
+
+
+@pytest.mark.parametrize("m", [1, 3, 32, 37, 130])
+def test_plain_fused_partial_dynamic_tile_equals_zero_padding(m):
+    """The plain K1 ranges a partial last ``dynamic`` tile over its real
+    rows; the reference wrapper pads it with zero rows to ``bm``.  Zero
+    rows add exact-zero partial sums to a range clamped at 1e-30, so the
+    two give the same bits (noisy slices, some negative), in every ADC
+    mode and with a zero input row."""
+    from repro_torch.core import DPEConfig
+    from repro_torch.core.dpe import prepare_weight
+    from repro_torch.core.prng import PRNGKey
+
+    cfg = DPEConfig(array_size=(32, 32))
+    g = torch.Generator().manual_seed(m)
+    pw = prepare_weight(torch.randn((70, 90), generator=g) * 0.1, cfg, key=PRNGKey(5))
+    x = torch.randn((m, 70), generator=g)
+    x[m // 2] = 0.0
+    for adc in ("dynamic", "dynamic_row", "fullscale"):
+        kw = dict(input_spec=cfg.input_spec, weight_spec=cfg.weight_spec, array_size=(32, 32),
+                  rdac=cfg.rdac, radc=cfg.radc, adc_mode=adc, bm=32)
+        got = tsm.fused_sliced_matmul_ref(x, pw.slices, pw.scale, **kw)
+        pad = (-m) % 32 if adc == "dynamic" else 0
+        xp = torch.nn.functional.pad(x, (0, pw.slices.shape[1] - 70, 0, pad))
+        xs, sx = tsm._prep_input(xp, cfg.input_spec, 32, cfg.rdac)
+        want = sliced_matmul_ref(xs, sx, pw.slices, pw.scale, input_spec=cfg.input_spec,
+                                 weight_spec=cfg.weight_spec, array_size=(32, 32),
+                                 radc=cfg.radc, adc_mode=adc, bm=32 if adc == "dynamic" else m)
+        assert torch.equal(got, want[:m]), adc

@@ -141,9 +141,14 @@ def test_unported_serving_features_raise():
     with pytest.raises(NotImplementedError):
         ServeConfig(mesh=object())
     _, tpol = policies("mem_faithful")
-    with pytest.raises(NotImplementedError):
-        tdpe.resolve_backend(tpol.default.replace(backend="circuit"))
+    # the circuit backend is ported (tests/test_torch_crossbar.py); the
+    # lockstep greedy_generate still refuses a mesh
+    assert tdpe.resolve_backend(tpol.default.replace(backend="circuit")) == "circuit"
     cfg = get_smoke("qwen2-0.5b")
+    from repro_torch.serve import greedy_generate
+
+    with pytest.raises(NotImplementedError, match="mesh"):
+        greedy_generate({}, cfg, torch.zeros((1, 2), dtype=torch.int32), 1, mesh=object())
     with pytest.raises(NotImplementedError, match="side inputs"):
         ServeLoop({}, cfg.replace(vision_prefix=4), ServeConfig(device="cpu"))
     with pytest.raises(NotImplementedError, match="all-attention"):
