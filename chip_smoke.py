@@ -78,13 +78,37 @@ Phases (any failure exits non-zero; nothing is caught):
    first-token logits within max rel 1e-4); and K1 on one call of 1,536
    rows at a q projection's shape, bit-equal to its plain version
    (``check_k1_long``);
-5. run the seven paper applications (``repro_torch.apps``) at their
+5. the trainer (``train``): ``repro_torch.launch.train.main`` at
+   qwen2-0.5b's full width and depth under ``make_policy
+   ("mem_faithful")``, batch 8 x 128 tokens, loss chunks of 64, remat
+   on, float32, AdamW with the cosine schedule, 3 steps: every loss and
+   grad norm finite, K1 and K6 launched by the formula (per step one
+   programming and one K1 a projection and a loss chunk, twice with
+   remat), its step time and tokens/s, one more step profiled (idle
+   share against the host time of steps 1 and 2, K1 and K6 device ms a
+   step), and, at 2 of the 24 layers (full width, batch 8 x 128, remat
+   on), a resumed run (2 steps with ``--ckpt``, then to step 3)
+   bit-equal to an uninterrupted one; K1 at the trainer's calls, each
+   projection shape at 1,024 rows and the vocab head at 512 rows (its
+   plain version over three slabs of 2,048 columns), bit-equal to its
+   plain version (``check_k1_train``);
+   at 2 of the 24 layers (batch 2 x 16, 2 steps) the kernels against
+   their plain versions and remat on against off, every loss, grad
+   norm, parameter and moment bit for bit (``train_plain``); one
+   ``adamw`` and one ``adafactor`` update of a full-width layer on the
+   card bit-equal to the CPU's, and the embedding gather's gradient
+   (``take_rows``, 1,024 ids over 37 rows) too (``check_optim``); and
+   ``repro_torch.examples.hw_training`` for 100 steps, whose loss must
+   fall (``hw_training``).  ``python3 chip_smoke.py --only train``, an
+   aid while developing the trainer (the smoke test proper takes no
+   arguments), builds the kernels and runs these phases alone;
+6. run the seven paper applications (``repro_torch.apps``) at their
    reference defaults (the default ``DPEConfig`` backend ``xla``: the
    ``dynamic`` ADC range spans a whole call, K-means' 150 rows
    included), once with the kernels and once with their plain versions:
    the results must be equal, and K1 must have launched in each of the
    five faithful ones;
-6. the circuit backend (``DPEConfig(backend="circuit")``, the IR-drop
+7. the circuit backend (``DPEConfig(backend="circuit")``, the IR-drop
    crossbar solve) on the card against the same call on the CPU, rel-Fro
    <= 1e-6, with its wall time and device launches (``check_circuit``).
 
@@ -1546,6 +1570,299 @@ def check_k6(timer, qcfg, summary, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 4d: the trainer, qwen2-0.5b trained through repro_torch.launch.train
+# ---------------------------------------------------------------------------
+
+# the launcher at qwen2-0.5b's full width, make_policy("mem_faithful"),
+# 3 steps of batch 8 x 128 tokens (loss chunks of 64, remat on, float32)
+TRAIN = ["--policy", "mem_faithful", "--steps", "3", "--batch", "8", "--seq", "128"]
+TRAIN_TOKENS = 8 * 128
+# the kernels-against-plain comparison: 2 of the 24 layers, batch 2 x 16
+TRAIN_CUT = ["--policy", "mem_faithful", "--layers", str(CUT_LAYERS), "--batch", "2", "--seq",
+             "16", "--steps", "2"]
+LOSS_CHUNK = 64  # launch/train.py's
+CKPT_DIR = os.path.join(HERE, "build", "chip_smoke_ckpt")
+
+
+def train_launches(n_layers, steps, seq, remat=True, n_slices=None):
+    """(K1, K6) launches of ``steps`` faithful train steps: per step one
+    programming and one K1 a projection (7 a layer) and a loss chunk
+    (the vocab head), all twice with remat (the recompute); a
+    programming is one K6 launch a slice plane."""
+    from repro_torch.launch.dryrun import make_policy
+
+    if n_slices is None:
+        n_slices = make_policy("mem_faithful").default.weight_spec.n_slices
+    chunks = -(-seq // min(LOSS_CHUNK, seq))
+    k1 = (7 * n_layers + chunks) * (2 if remat else 1) * steps
+    return k1, k1 * n_slices
+
+
+def _leaves_equal(a, b) -> bool:
+    from repro_torch.models.common import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu()) for x, y in zip(la, lb))
+
+
+def _train_counts():
+    from repro_torch.kernels import ops
+
+    return ops.COUNTERS["fused_sliced_matmul"].count, ops.COUNTERS["program_noise"].count
+
+
+def train(qcfg, card, counters):
+    """``repro_torch.launch.train.main`` at qwen2-0.5b's full width and
+    depth under ``mem_faithful``: 3 steps (each loss and grad norm finite,
+    K1 and K6 launched by the formula), one more step profiled (idle
+    share, K1 / K6 device ms a step); then, at ``CUT_LAYERS`` layers
+    (full width, the same batch, loss chunks and remat), a resumed run
+    (2 steps with ``--ckpt``, then to step 3) bit-equal to 3 steps
+    without a break."""
+    import shutil
+
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as trainer
+    from repro_torch.launch.dryrun import make_policy
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.train import make_train_step
+
+    ops.reset_counters()
+    rep: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    hist, state = trainer.main(TRAIN, return_state=True, report=rep)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    k1, k6 = _train_counts()
+    want = train_launches(qcfg.n_layers, 3, 128)
+    for i, (loss, gn, dt) in enumerate(zip(rep["loss"], rep["grad_norm"], rep["step_s"])):
+        print(f"train qwen2-0.5b mem_faithful step {i}: loss {loss:.6f}, grad norm {gn:.6f}, "
+              f"{dt * 1e3:.1f} ms, {TRAIN_TOKENS / dt:.1f} tokens/s  [{card}]")
+    print(f"train: 3 steps in {wall:.1f} s with the launcher's set-up; K1 {k1} launches, K6 {k6} "
+          f"(expected {want[0]}, {want[1]}); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB  [{card}]")
+    if (k1, k6) != want:
+        raise AssertionError(f"train: launches K1 {k1}, K6 {k6}, expected {want}")
+    if not all(np.isfinite(rep["loss"] + rep["grad_norm"])):
+        raise AssertionError(f"train: non-finite loss or grad norm {rep}")
+    counters["fused_sliced_matmul"] = counters.get("fused_sliced_matmul", 0) + k1
+    counters["program_noise"] = counters.get("program_noise", 0) + k6
+
+    # one more step (step 3) profiled; its work is that of steps 1 and 2,
+    # whose host times stand for its wall time
+    opt = adamw(lr=cosine_schedule(3e-4, warmup=5, total=3))
+    step_fn = make_train_step(qcfg, opt, make_policy("mem_faithful"),
+                              compute_dtype=torch.float32, loss_chunk=LOSS_CHUNK)
+    batch = synthetic_batch(qcfg, 8, 128, 3, device="cuda")
+    step_ms = statistics.mean(rep["step_s"][1:]) * 1e3
+    groups = device_groups(lambda: step_fn(state, batch))
+    if groups:
+        busy = sum(ms for ms, _ in groups.values())
+        k6_ms = sum(ms for g, (ms, _) in groups.items() if "program_noise" in g)
+        k6_n = sum(n for g, (_, n) in groups.items() if "program_noise" in g)
+        k1_ms, k1_n = groups.get("K1", (0.0, 0))
+        print(f"train step (qwen2-0.5b, 1,024 tokens): {step_ms:.1f} ms wall (steps 1 and 2), "
+              f"device busy {busy:.1f} ms, idle share {1 - busy / step_ms:.3f}; K1 {k1_ms:.1f} "
+              f"ms in {k1_n} kernel launches, K6 {k6_ms:.1f} ms in {k6_n} launches a step  "
+              f"[{card}]")
+        other = sorted(((ms, n, g) for g, (ms, n) in groups.items()
+                        if g.startswith("other") and "program_noise" not in g), reverse=True)
+        print(f"  other device work: {sum(o[0] for o in other):.1f} ms in "
+              f"{sum(o[1] for o in other)} launches; largest:")
+        for ms, n, g in other[:6]:
+            print(f"    {ms:.2f} ms in {n} launches  {g[7:]}")
+    else:
+        print("train step: device time not measured (the profiler saw no device events)")
+
+    del state
+    torch.cuda.empty_cache()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    whole = TRAIN + ["--layers", str(CUT_LAYERS)]
+    two = [a if a != "3" else "2" for a in TRAIN] + ["--layers", str(CUT_LAYERS)]
+    hist, state = trainer.main(whole, return_state=True)
+    t0 = time.monotonic()
+    first = trainer.main(two + ["--ckpt", CKPT_DIR])
+    t1 = time.monotonic()
+    rest, resumed = trainer.main(whole + ["--ckpt", CKPT_DIR], return_state=True)
+    t2 = time.monotonic()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    same = first + rest == hist and _leaves_equal(resumed, state)
+    print(f"train resume at {CUT_LAYERS} layers (full width, batch 8 x 128): 2 steps, "
+          f"checkpoint, resumed to step 3: losses {first + rest} vs {hist}; the final state "
+          f"bit-equal to the uninterrupted run: {same}; the runs {t1 - t0:.1f} s and "
+          f"{t2 - t1:.1f} s with the launcher's set-up and checkpoints (each saves one)  "
+          f"[{card}]")
+    if not same:
+        raise AssertionError("train: the resumed run differs from the uninterrupted one")
+
+
+def train_plain(card):
+    """The trainer at ``CUT_LAYERS`` layers of qwen2-0.5b (full width),
+    batch 2 x 16, 2 steps: with the kernels and remat off, with their
+    plain versions (``--kernels off``), and with the kernels and remat
+    on: every loss and grad norm, parameter and moment bit-equal."""
+    from repro_torch.launch import train as trainer
+
+    runs = {}
+    for label, extra in (("kernels", ["--remat", "off"]),
+                         ("plain", ["--remat", "off", "--kernels", "off"]),
+                         ("remat", ["--remat", "on"])):
+        rep: dict = {}
+        before = _train_counts()
+        t0 = time.monotonic()
+        _, st = trainer.main(TRAIN_CUT + extra, return_state=True, report=rep)
+        torch.cuda.synchronize()
+        n = tuple(a - b for a, b in zip(_train_counts(), before))
+        runs[label] = (rep, st, n, time.monotonic() - t0)
+        print(f"train at {CUT_LAYERS} layers, {label}: losses {rep['loss']}, grad norms "
+              f"{rep['grad_norm']}; K1 / K6 launches {n}; {runs[label][3]:.1f} s  [{card}]")
+    if runs["plain"][2] != (0, 0):
+        raise AssertionError("train: --kernels off launched a kernel")
+    for label, remat in (("kernels", False), ("remat", True)):
+        want = train_launches(CUT_LAYERS, 2, 16, remat=remat)
+        if runs[label][2] != want:
+            raise AssertionError(f"train {label}: launches {runs[label][2]}, expected {want}")
+    for a, b in (("kernels", "plain"), ("kernels", "remat")):
+        ra, sa = runs[a][:2]
+        rb, sb = runs[b][:2]
+        if ra["loss"] != rb["loss"] or ra["grad_norm"] != rb["grad_norm"] or \
+                not _leaves_equal(sa, sb):
+            raise AssertionError(f"train at {CUT_LAYERS} layers: {a} and {b} differ")
+        print(f"train at {CUT_LAYERS} layers: {a} and {b} give every loss, grad norm, parameter "
+              "and moment bit for bit")
+
+
+HEAD_SLAB = 2048  # columns of the vocab head held against its plain version, per slab
+
+
+def check_k1_train(timer, qcfg, card):
+    """K1 at the trainer's calls under ``mem_faithful`` (``dynamic`` ADC
+    over 128-row tiles), bit-equal to its plain version: each projection
+    shape of qwen2-0.5b at 1,024 rows (batch 8 x 128 tokens), and the
+    vocab head at 512 rows (batch 8 x a loss chunk of 64).  The head's
+    kernel runs over the whole head; its plain version over three slabs of
+    ``HEAD_SLAB`` whole crossbar columns (the first, the middle and the
+    last), whose columns it gives alone in the same bits (the ``dynamic``
+    range spans one crossbar's columns): the whole head's plain version
+    would take minutes, estimated here from the slabs' time."""
+    from repro_torch.core.dpe import prepare_weight
+    from repro_torch.core.prng import PRNGKey
+    from repro_torch.kernels import sliced_matmul as sm
+    from repro_torch.launch.dryrun import make_policy
+
+    cfg = make_policy("mem_faithful").default
+    kw = _k1_kw(cfg)
+    bn = cfg.array_size[1]
+    d, kv = qcfg.d_model, qcfg.n_kv_heads * qcfg.head_dim
+    shapes = (("q, o", d, d), ("k, v", d, kv), ("gate, up", d, qcfg.d_ff),
+              ("down", qcfg.d_ff, d), ("vocab head", d, qcfg.vocab))
+    g = torch.Generator(device="cuda").manual_seed(18)
+    for i, (label, k, n) in enumerate(shapes):
+        m = 8 * LOSS_CHUNK if label == "vocab head" else TRAIN_TOKENS
+        pw = prepare_weight(torch.randn((k, n), generator=g, device="cuda") * k**-0.5, cfg,
+                            PRNGKey(18 + i))
+        x = torch.randn((m, k), generator=g, device="cuda")
+        y = sm.fused_sliced_matmul_cuda(x, pw.slices, pw.scale, **kw)
+        _, kp, np_ = pw.slices.shape
+        if label == "vocab head":
+            mid = (np_ // bn // 2) * bn
+            cols = [(0, HEAD_SLAB), (mid, mid + HEAD_SLAB), (np_ - HEAD_SLAB, np_)]
+        else:
+            cols = [(0, np_)]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        same = True
+        for c0, c1 in cols:
+            yp = sm.fused_sliced_matmul_ref(x, pw.slices[:, :, c0:c1].contiguous(),
+                                            pw.scale[:, c0 // bn:c1 // bn].contiguous(), **kw)
+            same = same and torch.equal(y[:, c0:c1], yp)
+        torch.cuda.synchronize()
+        t_plain = (time.monotonic() - t0) * 1e3
+        if not bool(torch.isfinite(y).all()) or not same:
+            raise AssertionError(f"K1 {label} at M={m}: differs from its plain version")
+        t = timer(lambda: sm.fused_sliced_matmul_cuda(x, pw.slices, pw.scale, **kw))
+        nbytes = 4 * (pw.slices.numel() + pw.scale.numel() + x.numel() + m * np_)
+        flops = 2 * cfg.input_spec.n_slices * cfg.weight_spec.n_slices * m * kp * np_
+        b, by = bound_ms(nbytes, flops)
+        done = sum(c1 - c0 for c0, c1 in cols)
+        plain = (f"plain {t_plain:.1f} ms" if done == np_ else
+                 f"plain {t_plain:.1f} ms over {done:,} of its {np_:,} columns (the whole head "
+                 f"estimated {t_plain * np_ / done / 1e3:.0f} s)")
+        print(f"K1 {label} ({k} -> {n}) at M={m} bit-equal to its plain version: kernel "
+              f"{t:.4f} ms, {plain}, bound {b:.4f} ms ({by}), {b / t:.1%} of it  [{card}]")
+        del pw, x, y
+
+
+def check_optim(qcfg, card):
+    """One ``adamw`` and one ``adafactor`` update of a qwen2-0.5b layer's
+    parameters (full width) on the card, bit-equal to the same update on
+    the CPU; and the embedding gather's gradient (``take_rows``) with 1,024
+    ids over 37 rows, every one repeated, bit-equal to the CPU's."""
+    from repro_torch.core.prng import PRNGKey, fold_in, normal
+    from repro_torch.models import init_params
+    from repro_torch.optim import adafactor, adamw, cosine_schedule
+    from repro_torch.models.common import take_rows, tree_leaves, tree_map
+
+    params = init_params(qcfg.replace(n_layers=1), 0, device="cuda")["blocks"]
+    it = iter(range(10**6))
+    grads = tree_map(lambda t: normal(fold_in(PRNGKey(7), next(it)), t.shape, device="cuda")
+                     * 1e-2, params)
+    cpu = lambda tree: tree_map(lambda t: t.cpu(), tree)  # noqa: E731
+    n = sum(t.numel() for t in tree_leaves(params))
+    for name, opt in (("adamw", adamw(lr=cosine_schedule(3e-4, warmup=5, total=3))),
+                      ("adafactor", adafactor(lr=1e-2))):
+        step = torch.tensor(5, dtype=torch.int32)
+        t0 = time.monotonic()
+        pc, sc = opt.update(grads, opt.init(params), params, step.cuda())
+        torch.cuda.synchronize()
+        t_card = time.monotonic() - t0
+        t0 = time.monotonic()
+        pp, sp = opt.update(cpu(grads), opt.init(cpu(params)), cpu(params), step)
+        t_cpu = time.monotonic() - t0
+        same = _leaves_equal(pc, pp) and _leaves_equal(sc, sp)
+        print(f"optimizer {name}: one update of {n / 1e6:.1f} M parameters on the card "
+              f"({t_card * 1e3:.1f} ms) bit-equal to the CPU's ({t_cpu:.1f} s): {same}  [{card}]")
+        if not same:
+            raise AssertionError(f"optimizer {name}: the card's update differs from the CPU's")
+
+    # the embedding gather's gradient: repeated ids sum in position order
+    gen = torch.Generator().manual_seed(18)
+    w = torch.randn((37, qcfg.d_model), generator=gen)
+    ids = torch.randint(0, 37, (8, 128), generator=gen)
+    gy = torch.randn((8, 128, qcfg.d_model), generator=gen)
+    grads = []
+    for dev in ("cuda", "cpu"):
+        t = w.to(dev).requires_grad_(True)
+        take_rows(t, ids.to(dev)).backward(gy.to(dev))
+        grads.append(t.grad.cpu())
+    same = torch.equal(*grads)
+    print(f"take_rows gradient (1,024 ids over 37 rows, {qcfg.d_model} wide): the card's "
+          f"bit-equal to the CPU's: {same}")
+    if not same:
+        raise AssertionError("take_rows: the card's gradient differs from the CPU's")
+
+
+def hw_training(card):
+    """``repro_torch.examples.hw_training`` at its smoke size on the card,
+    100 steps: the loss must fall."""
+    from repro_torch.examples import hw_training as example
+
+    before = _train_counts()
+    t0 = time.monotonic()
+    losses = example.main(["--steps", "100"])
+    torch.cuda.synchronize()
+    n = tuple(a - b for a, b in zip(_train_counts(), before))
+    print(f"hw_training (h2o-danube smoke, int8 fast, lm_head digital): loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} in 100 steps, {time.monotonic() - t0:.1f} s; K1 / K6 launches "
+          f"{n}  [{card}]")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0] and n[1] > 0):
+        raise AssertionError("hw_training: the loss did not fall, or K6 never launched")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the paper's applications
 # ---------------------------------------------------------------------------
 
@@ -1622,18 +1939,19 @@ def device_groups(fn) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    # device activity only: the host-side events of a speculative run
-    # (hundreds of thousands of eager ops) take a minute to walk
+    # device activity only, read from the profiler's raw records: building
+    # its Python event tree takes a minute for a run of 200,000 launches
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     groups: dict = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or getattr(e, "is_user_annotation", bool)():
             continue
-        g = next((k for pat, k in KERNEL_OF if pat in e.name), "other: " + e.name[:60])
+        name = e.name()
+        g = next((k for pat, k in KERNEL_OF if pat in name), "other: " + name[:60])
         ms, n = groups.get(g, (0.0, 0))
-        groups[g] = (ms + e.self_device_time_total / 1e3, n + 1)
+        groups[g] = (ms + e.duration_ns() / 1e6, n + 1)
     return groups
 
 
@@ -1676,7 +1994,25 @@ def device_busy(loop, reqs, rep, card):
                k1_calls=ops.COUNTERS["fused_sliced_matmul"].count)
 
 
-def main() -> int:
+def train_phases(timed, timer, qcfg, card, counters):
+    timed("train", train, qcfg, card, counters)
+    torch.cuda.empty_cache()
+    timed("check_k1_train", check_k1_train, timer, qcfg, card)
+    torch.cuda.empty_cache()
+    timed("train_plain", train_plain, card)
+    timed("check_optim", check_optim, qcfg, card)
+    timed("hw_training", hw_training, card)
+    torch.cuda.empty_cache()
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py")
+    ap.add_argument("--only", choices=("train",), default=None,
+                    help="build the kernels and run this phase alone (no kernels line, no "
+                         "final line)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -1713,6 +2049,9 @@ def main() -> int:
         print(f"phase {name}: {time.monotonic() - t0:.1f} s")
         return out
 
+    if args.only == "train":
+        train_phases(timed, timer, qcfg, card, counters)
+        return 0
     timed("check_k1", check_k1, timer, qcfg, summary)
     timed("check_k1_tiles", check_k1_tiles, timer, summary, card)
     timed("check_k2_k3", check_k2_k3, timer, qcfg, summary, card, floor)
@@ -1731,6 +2070,7 @@ def main() -> int:
     summary["k1_long"] = timed("check_k1_long", check_k1_long, timer, card)
     del params
     torch.cuda.empty_cache()
+    train_phases(timed, timer, qcfg, card, counters)
     counters["sliced_matmul"] = summary["sliced_matmul"]["launches"]
     counters["flash_attention"] = summary["flash_attention"]["launches"]
     timed("run_apps", run_apps, card)

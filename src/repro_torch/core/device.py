@@ -17,6 +17,8 @@ kernel on the card; ``core.dpe`` programs through
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -28,6 +30,7 @@ __all__ = [
     "slice_to_conductance",
     "conductance_to_slice",
     "lognormal_program",
+    "lognormal_sigma",
     "noisy_slice_values",
 ]
 
@@ -45,15 +48,26 @@ def conductance_to_slice(g: torch.Tensor, bits: int, hgs: float, lgs: float):
     return div(g - lgs, dg)
 
 
+@functools.lru_cache(maxsize=None)
+def lognormal_sigma(cv: float) -> tuple[float, float]:
+    """``(sigma**2 / 2, sigma)`` for the coefficient of variation ``cv``,
+    float32 values as the reference computes them (XLA's ``log`` of the
+    float32 ``cv**2 + 1``, a correctly rounded square root, the products
+    in float32), on the host, once per ``cv``."""
+    s2 = xmath.log(torch.tensor(np.float32(cv * cv + 1.0)))
+    sigma = torch.sqrt(s2.double()).float()  # correctly rounded, as XLA's
+    half_s2 = (0.5 * sigma) * sigma
+    return float(half_s2), float(sigma)
+
+
 def lognormal_program(key, g: torch.Tensor, cv: float) -> torch.Tensor:
     """Sample programmed conductances around target ``g`` with
     coefficient of variation ``cv`` (Eq. 1, mean-preserving); ``key`` is
     a :mod:`repro_torch.core.prng` key."""
     if cv <= 0.0:
         return g
-    s2 = xmath.log(torch.tensor(np.float32(cv * cv + 1.0), device=g.device))
-    sigma = torch.sqrt(s2.double()).float()  # correctly rounded, as XLA's
-    mu = xmath.log(torch.clamp_min(g, 1e-30)) - (0.5 * sigma) * sigma
+    half_s2, sigma = lognormal_sigma(float(cv))
+    mu = xmath.log(torch.clamp_min(g, 1e-30)) - half_s2
     z = normal(key, g.shape, device=g.device)
     return xmath.exp(mu + sigma * z)
 

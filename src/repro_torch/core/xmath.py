@@ -15,13 +15,32 @@ equals the reference's bit for bit on the CPU
 (``tests/test_torch_prng.py``).  Inputs are finite float32 tensors in
 each function's domain (the callers' are); no special-value handling
 beyond what the callers need.
+
+A trainer differentiates through ``exp``, ``log``, ``sum_last``,
+``sqrt``, ``rsqrt`` and :func:`logsumexp`: each is a
+``torch.autograd.Function`` whose backward is JAX's own rule for the
+primitive (``g * y`` for ``exp``, ``g / x`` for ``log``, ``g`` broadcast
+for a sum, ``g * (0.5 / y)`` for ``sqrt``, ``g * (-0.5 * (y / x))`` for
+``rsqrt``), not the derivative of the polynomial that evaluates it.
+
+The optimisers' scalars replay XLA's CPU ``pow`` and ``cos``: calls of
+the C library's ``powf`` / ``cosf`` with results below the float32
+normal range flushed to zero, as XLA's CPU code runs (:func:`pow`,
+:func:`cos`, on host scalars).
 """
 from __future__ import annotations
+
+import ctypes
+import ctypes.util
+import functools
 
 import numpy as np
 import torch
 
-__all__ = ["fma", "log", "log1p", "exp", "erf_inv", "sum_last", "cumsum_last"]
+__all__ = [
+    "fma", "log", "log1p", "exp", "erf_inv", "sum_last", "cumsum_last", "logsumexp",
+    "sqrt", "rsqrt", "pow", "cos",
+]
 
 
 def _f(v: float) -> float:
@@ -29,7 +48,7 @@ def _f(v: float) -> float:
     return float(np.float32(v))
 
 
-def fma(a: torch.Tensor, b, c) -> torch.Tensor:
+def fma(a: torch.Tensor, b, c, *, wait: bool = True) -> torch.Tensor:
     """float32 ``a*b + c`` rounded once, as a fused multiply-add.
 
     float64 holds the product of two float32 values exactly, so the sum
@@ -38,22 +57,41 @@ def fma(a: torch.Tensor, b, c) -> torch.Tensor:
     between two float32 values without being exact; there the float64
     sum is moved one float64 ulp towards the exact sum, which then rounds
     correctly.  On the CPU the correction is computed for the halfway
-    elements of a tensor only; on a card it is a ``torch.where`` over the
-    whole tensor, so a call never waits for the device.  Results in the float32
+    elements of a tensor only.  On a card it is a ``torch.where`` over
+    the whole tensor, which ``wait`` runs only when ``tie.any()`` (one
+    wait for the device) finds a halfway sum: cheaper where they are rare
+    (polynomials of measured values), dearer in a chain of small integer
+    products, which land halfway, exactly, at most steps (the plain K1
+    passes ``wait=False``).  ``b`` and ``c`` may be Python or numpy
+    float32 scalars, which enter the float64 arithmetic as scalars: no
+    copy to the device, which would wait for it.  Results in the float32
     normal range; the operands broadcast as ``torch.addcmul``'s."""
-    dev = a.device
     a64 = a.double()
-    b64 = torch.as_tensor(b, dtype=torch.float64, device=dev)
-    c64 = torch.as_tensor(c, dtype=torch.float64, device=dev)
-    s = torch.addcmul(c64, a64, b64)
+    b64 = _as_f64(b, a.device)
+    c64 = _as_f64(c, a.device)
+    if isinstance(b64, torch.Tensor) and isinstance(c64, torch.Tensor):
+        s = torch.addcmul(c64, a64, b64)
+    else:  # the product is exact, so the sum is rounded once, as addcmul's
+        s = a64 * b64 + c64
     tie = halfway(s)
-    if dev.type == "cpu" and s.dim():
+    if a.device.type == "cpu" and s.dim():
         idx = tie.nonzero(as_tuple=True)
         if idx[0].numel():
-            pick = lambda t: t.expand_as(s)[idx]  # noqa: E731
+            def pick(t):
+                return t.expand_as(s)[idx] if isinstance(t, torch.Tensor) else t
             s[idx] = _towards_exact(s[idx], pick(a64), pick(b64), pick(c64))
         return s.float()
+    if wait and not bool(tie.any()):
+        return s.float()
     return torch.where(tie, _towards_exact(s, a64, b64, c64), s).float()
+
+
+def _as_f64(v, device):
+    """A float64 tensor on ``device`` for a tensor operand, a Python float
+    for a scalar one."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.float64)
+    return float(v)
 
 
 def _towards_exact(s, a, b, c):
@@ -85,10 +123,47 @@ def _horner(x: torch.Tensor, coeffs) -> torch.Tensor:
     return p
 
 
+class _Log(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y):
+        ctx.save_for_backward(y)
+        return _log(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g / y
+
+
+class _Exp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = _exp(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * y
+
+
 def log(y: torch.Tensor) -> torch.Tensor:
     """XLA's float32 ``log`` (Cephes ``logf``): ``y = m * 2**e`` with
     ``m`` in ``[sqrt(1/2), sqrt(2))``, then ``log(1 + x)`` for ``x = m -
-    1`` by a degree-9 polynomial.  Positive normal ``y``."""
+    1`` by a degree-9 polynomial.  Positive normal ``y``.  Gradient
+    ``g / y``."""
+    return _Log.apply(y)
+
+
+def exp(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``exp`` (Cephes ``expf``): ``x = n ln2 + r``, a
+    degree-5 polynomial in ``r``, times ``2**n``.  Gradient ``g * exp(x)``
+    (the output itself)."""
+    return _Exp.apply(x)
+
+
+def _log(y: torch.Tensor) -> torch.Tensor:
     bits = y.view(torch.int32)
     m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)  # [0.5, 1)
     small = m < _f(0.707106781186547524)
@@ -105,9 +180,7 @@ def log(y: torch.Tensor) -> torch.Tensor:
     return fma(e, 0.693359375, x)
 
 
-def exp(x: torch.Tensor) -> torch.Tensor:
-    """XLA's float32 ``exp`` (Cephes ``expf``): ``x = n ln2 + r``, a
-    degree-5 polynomial in ``r``, times ``2**n``."""
+def _exp(x: torch.Tensor) -> torch.Tensor:
     x = torch.clamp(x, _f(-87.80000305175781), _f(88.80000305175781))
     n = torch.floor(fma(x, _f(1.4426950216293335), 0.5)).clamp(-127.0, 127.0)
     r = fma(n, -0.693359375, x)
@@ -140,7 +213,7 @@ def log1p(x: torch.Tensor) -> torch.Tensor:
     x2 = x * x
     r = _horner(x, _LOG1P_NUM) / _horner(x, _LOG1P_DEN)
     small = x + fma(x2, -0.5, (x * x2) * r)
-    return torch.where(x.abs() < _LOG1P_SMALL, small, log(x + 1.0))
+    return torch.where(x.abs() < _LOG1P_SMALL, small, _log(x + 1.0))
 
 
 # erf_inv (stablehlo's chlo legalisation, Giles' single-precision fit)
@@ -158,9 +231,7 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     """XLA's float32 ``erf_inv`` for ``x`` in (-1, 1)."""
     w = -log1p(x * -x)
     lt = w < 5.0
-    # float64 sqrt rounds to the correctly rounded float32 sqrt (the CPU
-    # build of torch.sqrt on float32 is not correctly rounded)
-    w = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
+    w = torch.where(lt, w - 2.5, _sqrt(w) - 3.0)
     coef = lambda i: torch.where(  # noqa: E731
         lt, x.new_tensor(_ERFINV_LT5[i]), x.new_tensor(_ERFINV_GE5[i])
     )
@@ -178,11 +249,26 @@ def _seq_last(x: torch.Tensor) -> torch.Tensor:
     return s
 
 
+class _SumLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.shape = x.shape
+        return _sum_last(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[..., None].expand(ctx.shape)
+
+
 def sum_last(x: torch.Tensor) -> torch.Tensor:
     """XLA's CPU float32 ``sum`` over the last axis: windows of 32 summed
     in order (the axis zero-padded to whole windows, half the padding in
     front), level by level until at most 32 partial sums are left, which
-    are summed in order."""
+    are summed in order.  Gradient: ``g`` broadcast over the axis."""
+    return _SumLast.apply(x)
+
+
+def _sum_last(x: torch.Tensor) -> torch.Tensor:
     while x.shape[-1] > 32:
         n = x.shape[-1]
         m = -(-n // 32)
@@ -211,3 +297,95 @@ def cumsum_last(x: torch.Tensor) -> torch.Tensor:
     rows = _scan16(torch.nn.functional.pad(x, (0, m * 16 - n)).reshape(*x.shape[:-1], m, 16))
     excl = torch.nn.functional.pad(cumsum_last(rows[..., 15])[..., :-1], (1, 0))
     return (rows + excl[..., None]).reshape(*x.shape[:-1], m * 16)[..., :n]
+
+
+def logsumexp(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.logsumexp`` over the last axis: the max held out of the
+    gradient (0 where it is not finite), ``exp`` of the shifted values,
+    their sum in XLA's order, ``log`` of its absolute value plus the
+    max.  The gradient is JAX's: ``exp(x - m) * (g / sum)``."""
+    m = x.detach().amax(dim=-1)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    e = exp(x - m[..., None])
+    return log(sum_last(e).abs()) + m
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 ``sqrt`` (through float64, which rounds
+    to the correctly rounded float32 value; the CPU build of
+    ``torch.sqrt`` on float32 is not correctly rounded)."""
+    return torch.sqrt(x.double()).float()
+
+
+class _Sqrt(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = _sqrt(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * (torch.full_like(y, 0.5) / y)
+
+
+class _Rsqrt(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        x64 = x.double()
+        y = (torch.ones_like(x64) / torch.sqrt(x64)).float()
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        return g * ((y / x) * -0.5)
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``sqrt`` (the correctly rounded root).  Gradient
+    ``g * (0.5 / y)``."""
+    return _Sqrt.apply(x)
+
+
+def rsqrt(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``1 / sqrt(x)`` rounded once from float64 (the same bits on
+    the CPU and a card).  XLA's CPU ``rsqrt`` refines a hardware estimate
+    and lands within one ulp of this value, off by one ulp on about 14 %
+    of inputs; it is not replayed.  Gradient JAX's ``g * (-0.5 * (y /
+    x))``."""
+    return _Rsqrt.apply(x)
+
+
+@functools.lru_cache(maxsize=1)
+def _libm():
+    lib = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
+    for name, n in (("powf", 2), ("cosf", 1)):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_float
+        fn.argtypes = [ctypes.c_float] * n
+    return lib
+
+
+_TINY = np.finfo(np.float32).tiny
+
+
+def _ftz(v) -> np.float32:
+    """Flush a float32 value below the normal range to (signed) zero."""
+    v = np.float32(v)
+    return np.float32(np.copysign(0.0, v)) if abs(v) < _TINY else v
+
+
+def pow(base, t) -> np.float32:  # noqa: A001 - the primitive's name
+    """XLA's CPU float32 ``base ** t`` of two scalars: the C library's
+    ``powf`` on the float32 operands, inputs and result below the normal
+    range flushed to zero."""
+    return _ftz(_libm().powf(float(_ftz(base)), float(_ftz(t))))
+
+
+def cos(x) -> np.float32:
+    """XLA's CPU float32 ``cos`` of a scalar: the C library's ``cosf``,
+    input and result below the normal range flushed to zero."""
+    return _ftz(_libm().cosf(float(_ftz(x))))

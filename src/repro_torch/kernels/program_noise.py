@@ -25,8 +25,7 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.core import xmath
-from repro_torch.core.device import noisy_slice_values
+from repro_torch.core.device import lognormal_sigma, noisy_slice_values
 from repro_torch.core.prng import _as_key
 
 from .build import LaunchCounter, check, library
@@ -39,13 +38,11 @@ program_noise_ref = noisy_slice_values
 
 @functools.lru_cache(maxsize=None)
 def noise_scalars(bits: int, hgs: float, lgs: float, cv: float):
-    """The float32 scalars of one slice width's round trip, computed as
-    the plain version computes them: ``(lgs, dg, sigma**2/2, sigma)``."""
+    """The float32 scalars of one slice width's round trip, as the plain
+    version uses them: ``(lgs, dg, sigma**2/2, sigma)``."""
     dg = np.float32((hgs - lgs) / (2.0**bits - 1.0))
-    s2 = xmath.log(torch.tensor(np.float32(cv * cv + 1.0)))
-    sigma = torch.sqrt(s2.double()).float()
-    half_s2 = (0.5 * sigma) * sigma
-    return np.float32(lgs), dg, np.float32(half_s2.item()), np.float32(sigma.item())
+    half_s2, sigma = lognormal_sigma(float(cv))
+    return np.float32(lgs), dg, np.float32(half_s2), np.float32(sigma)
 
 
 @functools.lru_cache(maxsize=None)

@@ -67,7 +67,9 @@ def sliced_matmul_ref(
 def _pair_dots(xs: torch.Tensor, ws: torch.Tensor, bk: int) -> torch.Tensor:
     """Every slice-pair partial sum of every K-block, (nk, Sx, M, Sw, N),
     as the kernel's in-order chain of float32 fused multiply-adds over
-    the rows, each step rounded once (:func:`xmath.fma`)."""
+    the rows, each step rounded once (:func:`xmath.fma`, with no wait for
+    the card: integer slice products land halfway, exactly, at most
+    steps)."""
     sxn, m, kp = xs.shape
     swn, _, n = ws.shape
     nk = kp // bk
@@ -75,7 +77,7 @@ def _pair_dots(xs: torch.Tensor, ws: torch.Tensor, bk: int) -> torch.Tensor:
     w = ws.to(torch.float64).reshape(swn, nk, bk, n).permute(1, 0, 2, 3)  # k j b n
     p = torch.zeros((nk, sxn, m, swn, n), dtype=torch.float32, device=xs.device)
     for r in range(bk):
-        p = xmath.fma(x[:, :, :, r, None, None], w[:, None, None, :, r], p)
+        p = xmath.fma(x[:, :, :, r, None, None], w[:, None, None, :, r], p, wait=False)
     return p
 
 

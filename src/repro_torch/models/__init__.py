@@ -9,6 +9,7 @@ from .model import (
     init_cache,
     init_paged_cache,
     init_params,
+    loss_fn,
     prefill_chunk_step,
     segments,
 )
@@ -21,6 +22,7 @@ __all__ = [
     "EncoderConfig",
     "init_params",
     "forward",
+    "loss_fn",
     "init_cache",
     "init_paged_cache",
     "copy_paged_block",

@@ -110,10 +110,28 @@ def _causal_mask(sq, skv, q_off, window, device):
     return m
 
 
+class _Softmax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, s):
+        e = xmath.exp(s - s.amax(dim=-1, keepdim=True))
+        tot = xmath.sum_last(e)[..., None]
+        ctx.save_for_backward(e, tot)
+        return e / tot
+
+    @staticmethod
+    def backward(ctx, g):
+        e, tot = ctx.saved_tensors
+        inv_sq = torch.ones_like(tot) / (tot * tot)
+        g_tot = -xmath.sum_last((g * inv_sq) * e)[..., None]
+        return (g / tot + g_tot) * e
+
+
 def _softmax(s):
-    """``jax.nn.softmax`` over the last axis: ``exp(s - max) / sum``."""
-    e = xmath.exp(s - s.amax(dim=-1, keepdim=True))
-    return e / xmath.sum_last(e)[..., None]
+    """``jax.nn.softmax`` over the last axis: ``exp(s - max) / sum``.  Its
+    gradient is JAX's autodiff of that expression with the max held out
+    (this JAX's default softmax, without the custom rule): ``(g / sum -
+    sum(g / sum**2 * e)) * e``."""
+    return _Softmax.apply(s)
 
 
 def attention_dense(q, k, v, *, q_off=0, window=0, causal=True):

@@ -31,32 +31,107 @@ __all__ = [
     "uniform_init",
     "tree_map",
     "tree_leaves",
+    "tree_unflatten",
     "layer_slice",
+    "unstack_layers",
+    "take_rows",
     "stack_layers",
 ]
 
 
-def tree_map(fn, tree):
-    """Apply ``fn`` to every tensor leaf of nested dicts / NamedTuples
-    (other leaves, e.g. ``None`` or a float timestamp, pass through)."""
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` to every tensor leaf of nested dicts / NamedTuples,
+    with the matching leaves of ``rest`` (trees of the same structure) as
+    further arguments.  Dict keys are visited in JAX's order (sorted);
+    other leaves, e.g. ``None`` or a float timestamp, pass through."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(tree_map(fn, v) for v in tree))
+        return type(tree)(*(tree_map(fn, *vs) for vs in zip(tree, *rest)))
     if isinstance(tree, torch.Tensor):
-        return fn(tree)
+        return fn(tree, *rest)
     return tree
 
 
-def tree_leaves(tree) -> list:
+def tree_leaves(tree, *, paths: bool = False) -> list:
+    """The tensor leaves in :func:`tree_map`'s order (JAX's order for
+    nested dicts); with ``paths``, ``(path, leaf)`` pairs, a path being
+    JAX's ``"a/b/c"`` string of the keys that lead to the leaf (``.name``
+    for a NamedTuple field)."""
     out = []
-    tree_map(lambda t: out.append(t), tree)
+
+    def walk(t, prefix):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], prefix + (str(k),))
+        elif isinstance(t, tuple) and hasattr(t, "_fields"):
+            for name, v in zip(t._fields, t):
+                walk(v, prefix + ("." + name,))
+        elif isinstance(t, torch.Tensor):
+            out.append(("/".join(prefix), t) if paths else t)
+
+    walk(tree, ())
     return out
+
+
+def tree_unflatten(structure, leaves: list):
+    """``structure`` with its tensor leaves replaced, in order, by
+    ``leaves``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), structure)
 
 
 def layer_slice(tree, idx: int):
     """Layer ``idx`` of a stacked segment (views, no copy)."""
     return tree_map(lambda t: t[idx], tree)
+
+
+def unstack_layers(tree, steps: int) -> list:
+    """The ``steps`` layers of a stacked segment as a list of trees
+    (``unbind`` views: their gradients stack back into the stacked
+    leaves in one copy, where per-layer ``t[idx]`` views would each
+    scatter into a zero tensor of the whole stack)."""
+    if isinstance(tree, dict):
+        parts = {k: unstack_layers(v, steps) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(steps)]
+    if isinstance(tree, torch.Tensor):
+        return list(tree.unbind(0))
+    return [tree] * steps
+
+
+class _TakeRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows = w.shape[0]
+        return w[ids]
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        d = g.shape[-1]
+        flat, gf = ids.reshape(-1), g.reshape(-1, d)
+        order = torch.argsort(flat, stable=True)
+        uniq, counts = torch.unique_consecutive(flat[order], return_counts=True)
+        group = torch.repeat_interleave(torch.arange(uniq.numel(), device=g.device), counts)
+        rank = torch.arange(flat.numel(), device=g.device) - (torch.cumsum(counts, 0) - counts)[group]
+        lanes = torch.zeros((uniq.numel(), int(counts.max()), d), dtype=g.dtype, device=g.device)
+        lanes[group, rank] = gf[order]
+        acc = torch.zeros((uniq.numel(), d), dtype=g.dtype, device=g.device)
+        for j in range(lanes.shape[1]):
+            acc = acc + lanes[:, j]
+        out = torch.zeros((ctx.rows, d), dtype=g.dtype, device=g.device)
+        out[uniq] = acc
+        return out, None
+
+
+def take_rows(w: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``w[ids]`` (``jnp.take(w, ids, axis=0)``) whose gradient sums the
+    rows of a repeated id in the order of their positions, from zero: the
+    order of XLA's CPU scatter-add, and the same bits on a card (where
+    the gradient of an indexing op adds with atomics, in no fixed
+    order)."""
+    return _TakeRows.apply(w, ids.long())
 
 
 def stack_layers(make_layer, steps: int):

@@ -4,18 +4,25 @@ prefill step and the speculative verify step (port of the
 dense-decoder parts of ``repro/models/model.py``).
 
 The reference scans each segment of identical layers with ``lax.scan``
-(rematerialised per step in ``forward``); here that is a Python loop over
-the stacked layers, with no checkpointing (``remat`` is accepted and does
-nothing).  The ``lax.cond`` that skips the vocab head on non-final
-prefill chunks is a host ``if``.  Caches are updated in place (the
-reference donates them).  The layer key chain is the reference's:
+(rematerialised per step in ``forward`` and per chunk in ``loss_fn``);
+here that is a Python loop over the stacked layers, and ``remat`` wraps
+each layer and each loss chunk in a non-reentrant
+``torch.utils.checkpoint`` that recomputes the whole region in the
+backward pass (hardware layers program their weights again there, with
+the same keys, as the reference's recompute does).  The ``lax.cond``
+that skips the vocab head on non-final prefill chunks is a host ``if``.
+Caches are updated in place (the reference donates them).  The layer
+key chain is the reference's:
 ``fold_in(fold_in(rng, segment), layer)``.  Vision prefixes, encoders,
 SSM, MoE and hybrid layers raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
 
+from repro_torch.core import xmath
 from repro_torch.core.layers import DIGITAL, MemPolicy
 from repro_torch.core.prng import PRNGKey, fold_in, split
 
@@ -27,7 +34,9 @@ from .common import (
     norm,
     pget,
     stack_layers,
+    take_rows,
     uniform_init,
+    unstack_layers,
 )
 from .config import ArchConfig
 from .transformer import (
@@ -48,6 +57,7 @@ __all__ = [
     "decode_step",
     "decode_verify_step",
     "prefill_chunk_step",
+    "loss_fn",
 ]
 
 
@@ -93,7 +103,16 @@ def init_params(cfg: ArchConfig, key=0, dtype=torch.float32, device="cuda"):
 def _embed_inputs(params, cfg, batch, compute_dtype):
     if cfg.vision_prefix or "patch_embeds" in batch:
         raise NotImplementedError("vision prefixes are not ported to repro_torch yet")
-    return params["embed"]["w"].to(compute_dtype)[batch["tokens"].long()]
+    return take_rows(params["embed"]["w"].to(compute_dtype), batch["tokens"])
+
+
+def _remat(fn, *args):
+    """``fn(*args)`` under a non-reentrant checkpoint that recomputes the
+    whole of ``fn`` in the backward pass (no early stop: every hardware
+    layer of the region programs and runs again, as in the reference's
+    ``nothing_saveable`` recompute)."""
+    with _ckpt.set_checkpoint_early_stop(False):
+        return _ckpt.checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def forward(
@@ -116,7 +135,9 @@ def forward(
     :func:`repro_torch.models.programmed.program_params` (no layer
     re-programs); without it every hardware layer programs its weight
     on the fly from its key.  Attention uses the ``"tri"`` causal
-    schedule past 1,024 keys, as the reference's ``forward``."""
+    schedule past 1,024 keys, as the reference's ``forward``.  With
+    ``remat`` (``mode="train"``, gradients on) each layer is recomputed
+    in the backward pass instead of keeping its activations."""
     rng = PRNGKey(0) if rng is None else rng
     if cfg.encoder is not None:
         raise NotImplementedError("encoder-decoder models are not ported to repro_torch yet")
@@ -124,19 +145,23 @@ def forward(
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     prog_blocks = pget(programmed, "blocks")
+    remat = remat and mode == "train" and torch.is_grad_enabled()
     all_states = {}
     for si, (start, steps, tmpl) in enumerate(segments(cfg)):
         seg_p = params["blocks"][f"seg{si}"]
+        layers = unstack_layers(seg_p, steps)
         prog_seg = pget(prog_blocks, f"seg{si}")
         rng_s = fold_in(rng, si)
         ks, vs = [], []
         for idx in range(steps):
-            x, st = block_forward(
-                layer_slice(seg_p, idx), x, cfg, tmpl, policy=policy,
-                rng=fold_in(rng_s, idx), positions=positions, attn_schedule="tri",
-                prepared=None if prog_seg is None else layer_slice(prog_seg, idx),
-                kernels=kernels,
-            )
+            kw = dict(policy=policy, rng=fold_in(rng_s, idx), positions=positions,
+                      attn_schedule="tri", kernels=kernels,
+                      prepared=None if prog_seg is None else layer_slice(prog_seg, idx))
+            if remat:
+                x = _remat(lambda x, p_l=layers[idx], kw=kw:
+                           block_forward(p_l, x, cfg, tmpl, **kw)[0], x)
+                continue
+            x, st = block_forward(layers[idx], x, cfg, tmpl, **kw)
             if mode == "prefill":
                 ks.append(st["k"])
                 vs.append(st["v"])
@@ -147,6 +172,59 @@ def forward(
     if mode == "prefill":
         return x, all_states
     return x
+
+
+def loss_fn(
+    params,
+    cfg: ArchConfig,
+    batch: dict,
+    *,
+    policy: MemPolicy = DIGITAL,
+    rng=None,
+    compute_dtype=torch.bfloat16,
+    remat: bool = True,
+    loss_chunk: int = 256,
+    kernels: bool = True,
+):
+    """Mean next-token cross entropy of ``batch`` (``tokens``, ``labels``
+    (B, S); labels < 0 are masked), a 0-d float32 tensor.  The sequence
+    is cut into ``loss_chunk``-token chunks (the last padded with masked
+    labels); each chunk runs the vocab head (programmed per chunk from
+    ``rng``, as the reference's), :func:`~repro_torch.core.xmath.logsumexp`
+    and the picked logit, and with ``remat`` is recomputed in the
+    backward pass.  The sum over chunks and the count run in order from
+    zero, then ``tot / max(cnt, 1)``."""
+    x = forward(
+        params, cfg, batch, policy=policy, rng=rng, mode="train",
+        compute_dtype=compute_dtype, remat=remat, kernels=kernels,
+    )
+    labels = batch["labels"]
+    b, s, d = x.shape
+    ck = min(loss_chunk, s)
+    if s % ck:  # pad to a whole number of chunks; padded labels masked
+        pad = ck - s % ck
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+        s += pad
+    head = params["lm_head"]["w"]
+    rng = PRNGKey(0) if rng is None else rng
+
+    def chunk(xs, ls):
+        logits = dense({"w": head}, xs, name="lm_head", policy=policy, rng=rng,
+                       kernels=kernels).to(torch.float32)
+        lse = xmath.logsumexp(logits)
+        picked = torch.gather(logits, -1, ls.clamp_min(0).long()[..., None])[..., 0]
+        mask = (ls >= 0).to(torch.float32)
+        return torch.sum((lse - picked) * mask), torch.sum(mask)
+
+    remat = remat and torch.is_grad_enabled()
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(s // ck):
+        xs, ls = x[:, i * ck:(i + 1) * ck], labels[:, i * ck:(i + 1) * ck]
+        t, c = _remat(chunk, xs, ls) if remat else chunk(xs, ls)
+        tot, cnt = tot + t, cnt + c
+    return tot / torch.clamp_min(cnt, 1.0)
 
 
 def _seg_cache(cfg, tmpl, steps, batch, max_len, dtype, device):

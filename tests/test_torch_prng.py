@@ -150,3 +150,26 @@ def test_fma_rounds_once():
     got = xmath.fma(a, a.abs(), c)
     want = np.array([1 + 2**-11 + 2**-23, -(1 + 2**-11 + 2**-23), 1 + 2**-11], np.float32)
     assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("scalar", ["b", "c", "both"])
+def test_fma_scalar_operands_equal_tensor_operands(scalar):
+    """``xmath.fma`` with a Python float ``b`` and / or ``c`` gives the
+    bits of the same call on float32 tensors, halfway cases included:
+    ``(1 + 2**-23) + (1 + 2**-15) * 2**-24 * (1 - 2**-15)`` lands on a
+    float64 halfway point just above its exact sum (scaled by powers of
+    two and signed where ``c`` is a tensor)."""
+    rng = np.random.default_rng(5)
+    bf, cf = float(np.float32(1 - 2**-15)), float(np.float32(1 + 2**-23))
+    scale = 2.0 ** rng.integers(-20, 20, 64) if scalar == "b" else np.ones(64)
+    sign = rng.choice([-1.0, 1.0], 64) if scalar == "b" else np.ones(64)
+    a = torch.tensor(sign * (1 + 2**-15) * scale * 2**-24, dtype=torch.float32)
+    a = torch.cat([a, torch.from_numpy(rng.standard_normal(64).astype(np.float32))])
+    b_t = torch.full((128,), bf, dtype=torch.float32)
+    c_t = torch.tensor(np.concatenate([sign * scale * cf, np.full(64, cf)]),
+                       dtype=torch.float32)
+    want = xmath.fma(a, b_t, c_t)
+    naive = (a.double() * b_t.double() + c_t.double()).float()
+    assert not torch.equal(want, naive)  # the halfway cases are there
+    got = xmath.fma(a, bf if scalar != "c" else b_t, cf if scalar != "b" else c_t)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
