@@ -10,7 +10,8 @@ Phases (any failure exits non-zero; nothing is caught):
    versions;
 2. build every kernel from ``src/repro_torch/csrc`` with ``nvcc`` for
    ``sm_90a`` (the compiler's register / spill report goes to
-   ``chiprun_out/chip_smoke/build.log``);
+   ``chiprun_out/chip_smoke/build.log``), meanwhile running the seven
+   apps' plain versions on the card (``plain_apps``, held in phase 6);
 3. hold each kernel against its plain PyTorch version on the card and
    time both (CUDA events, L2 flushed before each launch), beside the
    least time the card could take: K1 bit for bit at qwen2-0.5b's
@@ -77,7 +78,20 @@ Phases (any failure exits non-zero; nothing is caught):
    (``attention_chunked``) and the ``ServeLoop`` (equal tokens,
    first-token logits within max rel 1e-4); and K1 on one call of 1,536
    rows at a q projection's shape, bit-equal to its plain version
-   (``check_k1_long``);
+   (``check_k1_long``); then rwkv6-1.6b (the attention-free RWKV6
+   ``ssm`` family, ``rwkv6``): at rwkv6-smoke the card's initial weights
+   and launcher tokens (digital, ``mem_faithful``) equal to the CPU's;
+   at full width and depth the launcher's default mode ``--arch
+   rwkv6-1.6b --policy mem_faithful`` through the dense
+   ``greedy_generate`` (K1 193 x 17 and K6 772 launches, no K2 / K3; its
+   programming, prefill, ITL, idle share and K1 a step), one 4,096-token
+   prompt under ``mem_faithful`` (prefill, ITL, peak memory, K1 193 x 5),
+   a 100-token prompt under ``digital`` through the chunked WKV form
+   against the same prompt fed token by token (equal tokens,
+   first-token logits within max rel 1e-4), and the default mode at 2
+   layers with ``--kernels on`` against ``off`` and ``--per_call``
+   (tokens and every logit row bit-equal); ``--only rwkv6`` runs this
+   phase alone after the build;
 5. the trainer (``train``): ``repro_torch.launch.train.main`` at
    qwen2-0.5b's full width and depth under ``make_policy
    ("mem_faithful")``, batch 8 x 128 tokens, loss chunks of 64, remat
@@ -107,7 +121,8 @@ Phases (any failure exits non-zero; nothing is caught):
    ``dynamic`` ADC range spans a whole call, K-means' 150 rows
    included), once with the kernels and once with their plain versions:
    the results must be equal, and K1 must have launched in each of the
-   five faithful ones;
+   five faithful ones.  The plain runs need no kernel, so they run on
+   the card while ``nvcc`` builds the kernels (``plain_apps``);
 7. the circuit backend (``DPEConfig(backend="circuit")``, the IR-drop
    crossbar solve) on the card against the same call on the CPU, rel-Fro
    <= 1e-6, with its wall time and device launches (``check_circuit``).
@@ -123,6 +138,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -1154,6 +1170,206 @@ def check_k1_long(timer, card):
     return dict(ms=t, plain_ms=t_plain, bound_ms=b, bound_by=by)
 
 
+# ---------------------------------------------------------------------------
+# phase 4d: rwkv6-1.6b (the RWKV6 ssm family) through the dense greedy path
+# ---------------------------------------------------------------------------
+
+RWKV_LAUNCH = ["--arch", "rwkv6-1.6b", "--policy", "mem_faithful", "--batch", "4",
+               "--prompt_len", "16", "--gen", "16"]
+RWKV_K1_STEP = 8 * 24 + 1  # r, k, v, g, o and the MLP's wi, wg, wo in 24 layers + the head
+RWKV_PROMPT = 100  # a digital prefill through the chunked WKV form: 4 chunks, the last padded
+RWKV_LONG = 4096  # one long prompt: the O(1) recurrent state at 4,096 tokens
+RWKV_LONG_NEW = 4  # decode steps after a prefill (greedy_generate's n_steps)
+RWKV_PROFILED = 4  # decode steps of the profiled generation (the idle share, K1 a step)
+
+
+def rwkv6(card, counters):
+    """rwkv6-1.6b at its published widths and depth through
+    ``repro_torch.launch.serve`` and the dense ``greedy_generate``: the
+    launcher's default mode (``make_policy("mem_faithful")``, batch 4,
+    prompt 16, 16 new; K1 and K6 by the formula, no K2 / K3) with its
+    programming, prefill, ITL and idle share; the same at ``CUT_LAYERS``
+    layers with ``--kernels on`` and ``off`` and with ``--per_call``
+    (tokens and every logit row bit-equal); a ``RWKV_PROMPT``-token
+    prompt under ``digital`` (the chunked WKV form) against the same
+    prompt fed token by token through ``decode_step`` (the scan): equal
+    tokens, first-token logits within max rel 1e-4; one ``RWKV_LONG``-
+    token prompt under ``mem_faithful`` (its prefill ms, ITL, peak memory
+    and K1 launches); and rwkv6-smoke on the card against the CPU (the
+    initial weights bit for bit, digital and faithful tokens equal)."""
+    from repro_torch.configs import get, get_smoke
+    from repro_torch.core.prng import PRNGKey, randint
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launcher
+    from repro_torch.launch.dryrun import make_policy
+    from repro_torch.models import (
+        decode_step, init_cache, init_params, program_params, programmed_byte_size)
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.serve import greedy_generate
+    from repro_torch.serve.engine import make_decode_step, make_prefill_step
+
+    cfg = get("rwkv6-1.6b")
+    scfg = get_smoke("rwkv6-1.6b")
+    a, b = (tree_leaves(init_params(scfg, 0, device=d)) for d in ("cuda", "cpu"))
+    if len(a) != len(b) or not all(torch.equal(x.cpu(), y) for x, y in zip(a, b)):
+        raise AssertionError("init_params(rwkv6-smoke): the card's draw differs from the CPU's")
+    for pol in ("digital", "mem_faithful"):
+        args = ["--arch", "rwkv6-1.6b", "--smoke", "--policy", pol, "--batch", "2",
+                "--prompt_len", "8", "--gen", "4"]
+        on_card, on_cpu = launcher.main(args), launcher.main(args + ["--device", "cpu"])
+        if not torch.equal(on_card.cpu(), on_cpu):
+            raise AssertionError(f"rwkv6-smoke {pol}: the card's tokens {on_card.tolist()} "
+                                 f"differ from the CPU's {on_cpu.tolist()}")
+    print(f"rwkv6-smoke on the card: initial weights bit-equal to the CPU's; digital and "
+          f"mem_faithful launcher tokens equal to the CPU's  [{card}]")
+
+    # the launcher's default mode at full width and depth
+    ops.reset_counters()
+    tokens = launcher.main(RWKV_LAUNCH)
+    torch.cuda.synchronize()
+    launched = path_launches()
+    expect_k1 = RWKV_K1_STEP * 17  # the prefill and 16 decode steps
+    expect_k6 = RWKV_K1_STEP * make_policy("mem_faithful").default.weight_spec.n_slices
+    print(f"rwkv6 launch default mode: launches {launched}; expected K1 {expect_k1}, "
+          f"K6 {expect_k6}")
+    if (launched["fused_sliced_matmul"] != expect_k1 or launched["program_noise"] != expect_k6
+            or launched["paged_decode_attention"] or launched["paged_chunk_attention"]):
+        raise AssertionError(f"rwkv6 launch default mode: launches {launched}")
+    if tokens.shape != (4, 17) or not bool(((tokens >= 0) & (tokens < cfg.vocab)).all()):
+        raise AssertionError(f"rwkv6 launch default mode: tokens {tokens}")
+    for name, n in launched.items():
+        counters[name] = counters.get(name, 0) + n
+    del tokens
+    torch.cuda.empty_cache()
+
+    # the same generation, timed (the launcher's run warmed it up): the
+    # programming, the prefill alone, the prefill with RWKV_PROFILED and
+    # with 16 decode steps; then the first two profiled
+    t0 = time.monotonic()
+    params = init_params(cfg, PRNGKey(0), device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.monotonic() - t0
+    pol = make_policy("mem_faithful")
+    t0 = time.monotonic()
+    prog = program_params(params, cfg, pol, PRNGKey(0))
+    torch.cuda.synchronize()
+    t_prog = time.monotonic() - t0
+    print(f"rwkv6-1.6b: init params {t_init:.2f} s; programmed "
+          f"{programmed_byte_size(prog) / 1e6:.1f} MB of crossbar state in {t_prog:.2f} s  "
+          f"[{card}]")
+    prompts = randint(PRNGKey(1), (4, 16), 0, cfg.vocab, device="cuda")
+
+    def generate(n):
+        return greedy_generate(params, cfg, prompts, n, policy=pol,
+                               compute_dtype=torch.float32, programmed=prog)
+
+    wall = {}
+    for n in (0, RWKV_PROFILED, 16):
+        t0 = time.monotonic()
+        generate(n)
+        torch.cuda.synchronize()
+        wall[n] = time.monotonic() - t0
+    pre, whole = wall[0], wall[16]
+    print(f"rwkv6 dense greedy_generate, mem_faithful (dynamic ADC), batch 4: prefill of 64 "
+          f"rows {pre * 1e3:.1f} ms, 16 new tokens in {whole * 1e3:.1f} ms: "
+          f"{4 * 16 / whole:.2f} tok/s, ITL {(whole - pre) / 16 * 1e3:.1f} ms  [{card}]")
+    g_pre = device_groups(lambda: generate(0))
+    g_all = device_groups(lambda: generate(RWKV_PROFILED))
+    print_busy(f"rwkv6's default mode (the prefill and {RWKV_PROFILED} decode steps)", g_all,
+               wall[RWKV_PROFILED] * 1e3, card, k1_calls=RWKV_K1_STEP * (RWKV_PROFILED + 1))
+    if g_pre and g_all:
+        def k1_other(g):
+            return (g.get("K1", (0.0, 0))[0],
+                    sum(n for k, (_, n) in g.items() if k.startswith("other")))
+
+        (k1_p, n_p), (k1_a, n_a) = k1_other(g_pre), k1_other(g_all)
+        print(f"  the prefill: K1 {k1_p:.3f} ms device, {n_p} other launches; a decode step: "
+              f"K1 {(k1_a - k1_p) / RWKV_PROFILED:.3f} ms device, "
+              f"{(n_a - n_p) / RWKV_PROFILED:.0f} other launches  [{card}]")
+
+    # one long prompt: the prefill, then RWKV_LONG_NEW decode steps
+    long_prompt = randint(PRNGKey(1), (1, RWKV_LONG), 0, cfg.vocab, device="cuda")
+    prefill = make_prefill_step(cfg, pol, compute_dtype=torch.float32,
+                                cache_dtype=torch.float32)
+    decode = make_decode_step(cfg, pol, compute_dtype=torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counters()
+    t0 = time.monotonic()
+    logits, cache = prefill(params, {"tokens": long_prompt}, prog)
+    torch.cuda.synchronize()
+    t_pre = time.monotonic() - t0
+    out = [torch.argmax(logits, dim=-1)]
+    t0 = time.monotonic()
+    for _ in range(RWKV_LONG_NEW):
+        logits, cache = decode(params, cache, out[-1], prog)
+        out.append(torch.argmax(logits, dim=-1))
+    torch.cuda.synchronize()
+    itl = (time.monotonic() - t0) / RWKV_LONG_NEW
+    k1 = ops.COUNTERS["fused_sliced_matmul"].count
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"rwkv6 long prompt ({RWKV_LONG} tokens, batch 1, mem_faithful, {RWKV_LONG_NEW} new): "
+          f"prefill {t_pre * 1e3:.1f} ms, ITL {itl * 1e3:.1f} ms, peak device memory "
+          f"{peak:.2f} GiB, K1 {k1} launches (expected {RWKV_K1_STEP * (RWKV_LONG_NEW + 1)}), "
+          f"tokens {torch.stack(out, 1)[0].tolist()}  [{card}]")
+    if k1 != RWKV_K1_STEP * (RWKV_LONG_NEW + 1) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError("rwkv6 long prompt: K1 launches or non-finite logits")
+    counters["fused_sliced_matmul"] += k1
+    del prog, cache, logits
+    torch.cuda.empty_cache()
+
+    # a digital prompt through the chunked form against token-by-token decoding
+    prompt = randint(PRNGKey(2), (1, RWKV_PROMPT), 0, cfg.vocab, device="cuda")
+    t0 = time.monotonic()
+    dense_tok, dense_logits = greedy_generate(params, cfg, prompt, RWKV_LONG_NEW,
+                                              compute_dtype=torch.float32, collect_logits=True)
+    torch.cuda.synchronize()
+    t_chunked = time.monotonic() - t0
+    cache = init_cache(cfg, 1, 1, dtype=torch.float32, device="cuda")
+    t0 = time.monotonic()
+    for i in range(RWKV_PROMPT):
+        step, cache = decode_step(params, cfg, cache, prompt[:, i], compute_dtype=torch.float32)
+    first, out = step, [torch.argmax(step, dim=-1)]
+    for _ in range(RWKV_LONG_NEW):
+        step, cache = decode_step(params, cfg, cache, out[-1], compute_dtype=torch.float32)
+        out.append(torch.argmax(step, dim=-1))
+    torch.cuda.synchronize()
+    t_scan = time.monotonic() - t0
+    scan_tok = torch.stack(out, 1).to(torch.int32)
+    rel = rel_max(dense_logits[0, 0], first[0])
+    print(f"rwkv6 {RWKV_PROMPT}-token prompt, digital, {RWKV_LONG_NEW} new: chunked prefill "
+          f"{t_chunked:.2f} s, token by token {t_scan:.2f} s; tokens {dense_tok[0].tolist()} vs "
+          f"{scan_tok[0].tolist()}; first-token logits max rel {rel:.3e}  [{card}]")
+    if not torch.equal(dense_tok, scan_tok) or not rel <= 1e-4:
+        raise AssertionError("rwkv6: the chunked prefill and token-by-token decoding disagree")
+    del params, cache
+    torch.cuda.empty_cache()
+
+    # kernels against their plain versions, per-call against programmed:
+    # the default mode at CUT_LAYERS layers (full width, the head included)
+    cut = RWKV_LAUNCH + ["--layers", str(CUT_LAYERS)]
+    ops.reset_counters()
+    on = launcher.main(cut + ["--kernels", "on"], collect_logits=True)
+    k1_on = ops.COUNTERS["fused_sliced_matmul"].count
+    t0 = time.monotonic()
+    off = launcher.main(cut + ["--kernels", "off"], collect_logits=True)
+    torch.cuda.synchronize()
+    t_off = time.monotonic() - t0
+    if (k1_on != (8 * CUT_LAYERS + 1) * 17
+            or ops.COUNTERS["fused_sliced_matmul"].count != k1_on):
+        raise AssertionError("rwkv6: --kernels on launched other than the formula's K1, or "
+                             "--kernels off launched one")
+    per_call = launcher.main(cut + ["--per_call"], collect_logits=True)
+    torch.cuda.synchronize()
+    for label, other in (("--kernels off", off), ("--per_call", per_call)):
+        if not (torch.equal(on[0], other[0]) and torch.equal(on[1], other[1])):
+            raise AssertionError(f"rwkv6 at {CUT_LAYERS} layers: {label} differs from the "
+                                 "programmed run with the kernels")
+        print(f"rwkv6 at {CUT_LAYERS} layers: {label} gives the tokens and all "
+              f"{on[1].shape[0] * on[1].shape[1]} logit rows of the programmed run with the "
+              "kernels, bit for bit")
+    print(f"rwkv6 at {CUT_LAYERS} layers with the plain versions: {t_off:.1f} s  [{card}]")
+
+
 def check_circuit(card):
     """The circuit backend on the card (``DPEConfig(backend="circuit")``,
     M 4, K = N = 64, 32x32 arrays, noise keyed) against the same call on
@@ -1893,7 +2109,31 @@ def _same(a, b) -> bool:
     return type(a) is type(b) and a == b
 
 
-def run_apps(card):
+def plain_apps() -> dict:
+    """The seven apps at their defaults with their plain versions on the
+    card (``kernels=False``): ``{name: (result, wall s)}``.  No kernel is
+    needed, so ``main`` runs this while ``nvcc`` builds them; fails if a
+    kernel launched."""
+    import importlib
+
+    from repro_torch.kernels import ops
+
+    ops.reset_counters()
+    plain = {}
+    for name in APPS:
+        mod = importlib.import_module(f"repro_torch.apps.{name}")
+        t0 = time.monotonic()
+        out = mod.run(device="cuda", kernels=False)
+        torch.cuda.synchronize()
+        plain[name] = (out, time.monotonic() - t0)
+    if any(c.count for c in ops.COUNTERS.values()):
+        raise AssertionError("the apps' kernels=False runs launched a kernel")
+    return plain
+
+
+def run_apps(card, plain_runs):
+    """The seven apps at their defaults with the kernels, each result held
+    against its plain run from :func:`plain_apps`."""
     import importlib
 
     from repro_torch.kernels import ops
@@ -1907,20 +2147,15 @@ def run_apps(card):
         wall = time.monotonic() - t0
         k1 = ops.COUNTERS["fused_sliced_matmul"].count
         k6 = ops.COUNTERS["program_noise"].count
-        t0 = time.monotonic()
-        plain = mod.run(device="cuda", kernels=False)
-        torch.cuda.synchronize()
-        wall_plain = time.monotonic() - t0
-        if ops.COUNTERS["fused_sliced_matmul"].count != k1 or ops.COUNTERS["program_noise"].count != k6:
-            raise AssertionError(f"app {name}: the kernels=False run launched a kernel")
+        plain, wall_plain = plain_runs[name]
         items = list(_scalars(out))
         head = ", ".join(f"{key}={val:.6g}" if isinstance(val, float) else f"{key}={val}"
                          for key, val in items[:12])
         more = f" ... ({len(items)} scalars)" if len(items) > 12 else ""
         print(f"app {name}: {head}{more}")
         print(f"app {name}: {wall:.2f} s with the kernels ({k1} K1, {k6} K6 launches), "
-              f"{wall_plain:.2f} s "
-              f"with the plain versions; results equal: {_same(out, plain)}  [{card}]")
+              f"{wall_plain:.2f} s with the plain versions; results equal: "
+              f"{_same(out, plain)}  [{card}]")
         if not _same(out, plain):
             raise AssertionError(f"app {name}: kernels and plain versions disagree")
         if name in FAITHFUL_APPS and k1 <= 0:
@@ -2009,7 +2244,7 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(prog="chip_smoke.py")
-    ap.add_argument("--only", choices=("train",), default=None,
+    ap.add_argument("--only", choices=("train", "rwkv6"), default=None,
                     help="build the kernels and run this phase alone (no kernels line, no "
                          "final line)")
     args = ap.parse_args(argv)
@@ -2028,9 +2263,22 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
 
-    t0 = time.monotonic()
-    build.library()
-    print(f"built kernels with nvcc in {time.monotonic() - t0:.1f} s")
+    def timed(name, fn, *args):
+        t0 = time.monotonic()
+        out = fn(*args)
+        print(f"phase {name}: {time.monotonic() - t0:.1f} s")
+        return out
+
+    def build_kernels():
+        t0 = time.monotonic()
+        build.library()
+        return time.monotonic() - t0
+
+    # the apps' plain runs need no kernel: they take the card while nvcc builds
+    with ThreadPoolExecutor(1) as pool:
+        built = pool.submit(build_kernels)
+        plain_runs = timed("plain_apps", plain_apps) if args.only is None else None
+        print(f"built kernels with nvcc in {built.result():.1f} s")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "build.log"), "w") as fh:
         fh.write(build.build_log())
@@ -2043,14 +2291,11 @@ def main(argv=None) -> int:
     summary: dict = {}
     counters: dict = {}
 
-    def timed(name, fn, *args):
-        t0 = time.monotonic()
-        out = fn(*args)
-        print(f"phase {name}: {time.monotonic() - t0:.1f} s")
-        return out
-
     if args.only == "train":
         train_phases(timed, timer, qcfg, card, counters)
+        return 0
+    if args.only == "rwkv6":
+        timed("rwkv6", rwkv6, card, counters)
         return 0
     timed("check_k1", check_k1, timer, qcfg, summary)
     timed("check_k1_tiles", check_k1_tiles, timer, summary, card)
@@ -2070,10 +2315,11 @@ def main(argv=None) -> int:
     summary["k1_long"] = timed("check_k1_long", check_k1_long, timer, card)
     del params
     torch.cuda.empty_cache()
+    timed("rwkv6", rwkv6, card, counters)
     train_phases(timed, timer, qcfg, card, counters)
     counters["sliced_matmul"] = summary["sliced_matmul"]["launches"]
     counters["flash_attention"] = summary["flash_attention"]["launches"]
-    timed("run_apps", run_apps, card)
+    timed("run_apps", run_apps, card, plain_runs)
     timed("check_circuit", check_circuit, card)
 
     sources = {

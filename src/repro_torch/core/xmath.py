@@ -23,6 +23,10 @@ primitive (``g * y`` for ``exp``, ``g / x`` for ``log``, ``g`` broadcast
 for a sum, ``g * (0.5 / y)`` for ``sqrt``, ``g * (-0.5 * (y / x))`` for
 ``rsqrt``), not the derivative of the polynomial that evaluates it.
 
+RWKV6's decay replays XLA's CPU ``tanh`` (:func:`tanh`, Eigen's rational
+approximation) and its flush of float32 subnormals to zero
+(:func:`ftz`).
+
 The optimisers' scalars replay XLA's CPU ``pow`` and ``cos``: calls of
 the C library's ``powf`` / ``cosf`` with results below the float32
 normal range flushed to zero, as XLA's CPU code runs (:func:`pow`,
@@ -38,8 +42,8 @@ import numpy as np
 import torch
 
 __all__ = [
-    "fma", "log", "log1p", "exp", "erf_inv", "sum_last", "cumsum_last", "logsumexp",
-    "sqrt", "rsqrt", "pow", "cos",
+    "fma", "log", "log1p", "exp", "erf_inv", "tanh", "ftz", "sum_last", "cumsum_last",
+    "logsumexp", "sqrt", "rsqrt", "pow", "cos",
 ]
 
 
@@ -239,6 +243,40 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     for i in range(1, len(_ERFINV_LT5)):
         p = fma(p, w, coef(i))
     return p * x
+
+
+# tanh (Eigen's fast float tanh, as XLA's CPU backend emits it with
+# FMA): an odd degree-13 numerator over an even degree-6 denominator
+_TANH_CLAMP = 7.99881172180175781
+_TANH_TINY = 0.0004
+_TANH_NUM = (
+    -2.76076847742355e-16, 2.00018790482477e-13, -8.60467152213735e-11,
+    5.12229709037114e-08, 1.48572235717979e-05, 6.37261928875436e-04,
+    4.89352455891786e-03,
+)
+_TANH_DEN = (
+    1.19825839466702e-06, 1.18534705686654e-04, 2.26843463243900e-03,
+    4.89352518554385e-03,
+)
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU float32 ``tanh``: ``x`` clamped to +-7.9988, ``x * p(x**2)
+    / q(x**2)`` with both polynomials in fused multiply-adds, and ``x``
+    itself where ``|x| < 0.0004``.  Finite inputs; no gradient rule (the
+    RWKV6 decay calls it, which serves but does not train:
+    :func:`repro_torch.models.model.loss_fn` refuses it)."""
+    xc = torch.clamp(x, -_f(_TANH_CLAMP), _f(_TANH_CLAMP))
+    x2 = xc * xc
+    return torch.where(x.abs() < _f(_TANH_TINY), x,
+                       (xc * _horner(x2, _TANH_NUM)) / _horner(x2, _TANH_DEN))
+
+
+def ftz(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with values below the float32 normal range flushed to zero of
+    the same sign, as XLA's CPU code computes every float32 operation
+    (torch keeps subnormals, on the CPU and on a card).  Finite inputs."""
+    return torch.where(x.abs() < float(_TINY), x * 0.0, x)
 
 
 def _seq_last(x: torch.Tensor) -> torch.Tensor:

@@ -6,9 +6,8 @@ tokens.
 
     python -m repro_torch.examples.serve_memristive_lm [--device cpu]
 
-The reference example serves rwkv6-1.6b's smoke config; SSM layers are
-not ported yet (ROADMAP A6), so this one serves qwen2-0.5b's
-(``qwen2-smoke``) with the same policy, prompts and flow.  Passing the
+Like the reference example it serves rwkv6-1.6b's smoke config
+(``rwkv6-smoke``: attention-free, an O(1) decode state).  Passing the
 programmed state is bitwise the same as letting ``greedy_generate``
 program each call with the same key; digital-vs-analog disagreement is
 the physics (programming noise moving near-tie logits).
@@ -30,7 +29,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.examples.serve_memristive_lm")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     dev = ap.parse_args(argv).device
-    cfg = get_smoke("qwen2-0.5b")
+    cfg = get_smoke("rwkv6-1.6b")  # attention-free: O(1) decode state
     params = init_params(cfg, PRNGKey(0), device=dev)
     prompts = randint(PRNGKey(1), (4, 12), 0, cfg.vocab, device=dev)
     digital = greedy_generate(params, cfg, prompts, 12, compute_dtype=torch.float32)

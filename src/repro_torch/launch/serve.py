@@ -26,10 +26,19 @@ The flags are the reference's, except:
 * ``--layers N`` cuts the model to N layers (widths unchanged);
 * ``--shard_model`` above 1 raises: meshes are not ported.
 
-Without ``--smoke`` the model is qwen2-0.5b at its published widths,
-with random weights drawn from ``PRNGKey(0)`` as the reference draws
-them; the prompts are ``randint(PRNGKey(1), (batch, prompt_len), 0,
-vocab)``, the reference's draw.
+Without ``--smoke`` the model is ``--arch`` (default qwen2-0.5b) at its
+published widths, with random weights drawn from ``PRNGKey(0)`` as the
+reference draws them; the prompts are ``randint(PRNGKey(1), (batch,
+prompt_len), 0, vocab)``, the reference's draw.  ``--arch`` takes the
+ported configurations: qwen2-0.5b, h2o-danube-1.8b and rwkv6-1.6b, the
+attention-free RWKV6, whose recurrent state the lockstep mode carries in
+its dense cache::
+
+    python -m repro_torch.launch.serve --arch rwkv6-1.6b --policy mem_faithful
+
+With ``--requests`` rwkv6 raises ``NotImplementedError``, as the
+reference does: the continuous-batching engine takes all-attention
+models only.
 """
 from __future__ import annotations
 

@@ -5,7 +5,7 @@ One frozen config fully determines a model: family, dimensions, attention
 flavour (GQA/SWA/qk-norm/bias), MoE, SSM (rwkv6/mamba), hybrid layout,
 encoder-decoder, and modality stubs.  Instances for the ten assigned
 architectures live in ``repro.configs``; the port's registry,
-``repro_torch.configs``, holds qwen2-0.5b only for now.
+``repro_torch.configs``, holds the ported ones.
 """
 from __future__ import annotations
 

@@ -1,7 +1,9 @@
 """Model entry points: init, ``forward`` (train / prefill), the dense and
 the paged KV caches, the decode step (dense or paged), the chunked
 prefill step and the speculative verify step (port of the
-dense-decoder parts of ``repro/models/model.py``).
+decoder parts of ``repro/models/model.py``): dense attention decoders
+and the RWKV6 ``ssm`` family, whose dense cache holds each layer's
+recurrent state instead of K / V.
 
 The reference scans each segment of identical layers with ``lax.scan``
 (rematerialised per step in ``forward`` and per chunk in ``loss_fn``);
@@ -14,7 +16,10 @@ that skips the vocab head on non-final prefill chunks is a host ``if``.
 Caches are updated in place (the reference donates them).  The layer
 key chain is the reference's:
 ``fold_in(fold_in(rng, segment), layer)``.  Vision prefixes, encoders,
-SSM, MoE and hybrid layers raise ``NotImplementedError``.
+Mamba, MoE and hybrid layers raise ``NotImplementedError``; the paged
+cache, chunked prefill and speculative verify take attention layers
+only, as the reference's.  :func:`loss_fn` (the trainer) takes attention
+layers only: RWKV6 layers serve but are not ported to training yet.
 """
 from __future__ import annotations
 
@@ -39,12 +44,14 @@ from .common import (
     unstack_layers,
 )
 from .config import ArchConfig
+from .ssm import init_rwkv6_state
 from .transformer import (
     block_chunk,
     block_decode,
     block_forward,
     block_verify,
     init_block_params,
+    layer_kind,
 )
 
 __all__ = [
@@ -130,7 +137,9 @@ def forward(
 ):
     """Hidden states (B, S, d) after the final norm of ``batch["tokens"]``
     (B, S); with ``mode == "prefill"`` also the per-segment serving
-    states ``{"seg{i}": {"k", "v"}}``, each (steps, B, S, KV, hd).
+    states stacked over the segment's layers: ``{"seg{i}": {"k", "v"}}``,
+    each (steps, B, S, KV, hd), for attention layers, ``{"s", "x_prev"}``
+    ((steps, B, H, N, N) and (steps, B, d)) for RWKV6 layers.
     ``programmed`` is weight-stationary state from
     :func:`repro_torch.models.programmed.program_params` (no layer
     re-programs); without it every hardware layer programs its weight
@@ -152,7 +161,7 @@ def forward(
         layers = unstack_layers(seg_p, steps)
         prog_seg = pget(prog_blocks, f"seg{si}")
         rng_s = fold_in(rng, si)
-        ks, vs = [], []
+        states = []
         for idx in range(steps):
             kw = dict(policy=policy, rng=fold_in(rng_s, idx), positions=positions,
                       attn_schedule="tri", kernels=kernels,
@@ -163,10 +172,10 @@ def forward(
                 continue
             x, st = block_forward(layers[idx], x, cfg, tmpl, **kw)
             if mode == "prefill":
-                ks.append(st["k"])
-                vs.append(st["v"])
+                states.append(st)
         all_states[f"seg{si}"] = (
-            {"k": torch.stack(ks), "v": torch.stack(vs)} if mode == "prefill" else None
+            {k: torch.stack([st[k] for st in states]) for k in states[0]}
+            if mode == "prefill" else None
         )
     x = norm(x, params["final_norm"], cfg.norm)
     if mode == "prefill":
@@ -193,7 +202,10 @@ def loss_fn(
     ``rng``, as the reference's), :func:`~repro_torch.core.xmath.logsumexp`
     and the picked logit, and with ``remat`` is recomputed in the
     backward pass.  The sum over chunks and the count run in order from
-    zero, then ``tot / max(cnt, 1)``."""
+    zero, then ``tot / max(cnt, 1)``.  Raises ``NotImplementedError`` for
+    RWKV6 layers (their gradients are not held against the reference's)."""
+    if any(cfg.layer_kind(i)[0] == "ssm" for i in range(cfg.n_layers)):
+        raise NotImplementedError("training ssm layers is not ported to repro_torch yet")
     x = forward(
         params, cfg, batch, policy=policy, rng=rng, mode="train",
         compute_dtype=compute_dtype, remat=remat, kernels=kernels,
@@ -228,10 +240,11 @@ def loss_fn(
 
 
 def _seg_cache(cfg, tmpl, steps, batch, max_len, dtype, device):
-    """One segment's dense K / V, stacked over its layers (attention
-    layers only: the SSM state and hybrid groups are not ported)."""
-    if cfg.family == "hybrid" or cfg.layer_kind(tmpl)[0] != "attn":
-        raise NotImplementedError("SSM / hybrid serving state is not ported to repro_torch yet")
+    """One segment's dense serving state, stacked over its layers: K / V
+    of attention layers, the RWKV6 state ``s`` (float32) and ``x_prev``
+    (in ``dtype``) of recurrent ones."""
+    if layer_kind(cfg, tmpl) == "ssm":
+        return init_rwkv6_state(cfg, batch, steps, dtype, device)
     shape = (steps, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -240,7 +253,9 @@ def _seg_cache(cfg, tmpl, steps, batch, max_len, dtype, device):
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device="cuda"):
     """The DENSE serving cache: ``pos`` (batch,) int32 and per segment
-    ``{"k", "v"}`` of shape (steps, batch, max_len, KV, hd)."""
+    ``{"k", "v"}`` of shape (steps, batch, max_len, KV, hd), or for RWKV6
+    layers ``{"s", "x_prev"}`` of shapes (steps, batch, H, N, N) and
+    (steps, batch, d), whatever ``max_len``."""
     if cfg.encoder is not None:
         raise NotImplementedError("encoder-decoder models are not ported to repro_torch yet")
     cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=device), "blocks": {}}
@@ -295,9 +310,10 @@ def copy_paged_block(cache: dict, src: int, dst: int) -> dict:
 
 
 def _layers(params, cfg, cache, programmed, rng):
-    """Yield ``(params, programmed, kv_state, rng, template_idx)`` of
-    every layer in order (the reference's scan over stacked segments);
-    ``kv_state`` holds views of the layer's dense K / V rows or pools."""
+    """Yield ``(params, programmed, state, rng, template_idx)`` of every
+    layer in order (the reference's scan over stacked segments);
+    ``state`` holds views of the layer's dense K / V rows or pools, or of
+    its recurrent state."""
     prog_blocks = pget(programmed, "blocks")
     for si, (start, steps, tmpl) in enumerate(segments(cfg)):
         seg_p = params["blocks"][f"seg{si}"]
@@ -306,7 +322,7 @@ def _layers(params, cfg, cache, programmed, rng):
         rng_s = fold_in(rng, si)
         for idx in range(steps):
             prog_l = None if prog_seg is None else layer_slice(prog_seg, idx)
-            state = {"k": seg_c["k"][idx], "v": seg_c["v"][idx]}
+            state = {k: t[idx] for k, t in seg_c.items()}
             yield layer_slice(seg_p, idx), prog_l, state, fold_in(rng_s, idx), tmpl
 
 
@@ -325,9 +341,9 @@ def decode_step(
 ):
     """One serving step: consume ``tokens``, return (logits (B, V) f32,
     cache).  Rows where ``active`` is False neither advance ``pos`` nor
-    touch live KV.  The cache — the dense :func:`init_cache` tree or the
-    paged :func:`init_paged_cache` tree, told apart by its
-    ``block_tables`` — is updated in place."""
+    touch live KV or recurrent state.  The cache — the dense
+    :func:`init_cache` tree or the paged :func:`init_paged_cache` tree,
+    told apart by its ``block_tables`` — is updated in place."""
     rng = PRNGKey(0) if rng is None else rng
     block_tables = cache.get("block_tables")
     x1 = params["embed"]["w"].to(compute_dtype)[tokens.long()]

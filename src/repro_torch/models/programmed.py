@@ -1,5 +1,5 @@
-"""Program-once weight-stationary inference (port of the dense-layer
-parts of ``repro/models/programmed.py``).
+"""Program-once weight-stationary inference (port of the attention- and
+RWKV6-layer parts of ``repro/models/programmed.py``).
 
 :func:`program_params` walks the model once, resolves each logical layer
 name through the ``MemPolicy`` and materialises the programmed state
@@ -20,7 +20,7 @@ from repro_torch.core.prng import PRNGKey, fold_in
 from .common import layer_slice, stack_layers, tree_leaves
 from .config import ArchConfig
 from .model import segments
-from .transformer import _attn_only
+from .transformer import layer_kind
 
 __all__ = ["program_params", "programmed_byte_size"]
 
@@ -32,18 +32,28 @@ def _prog_dense(p: dict, name: str, rng, policy: MemPolicy, t_prog, kernels):
     return program_weight(p["w"], cfg, layer_key(rng, name), t_prog, kernels)
 
 
+# (param key, layer-name suffix) of each mixer's projections
+_PROJ = {
+    "attn": (("q_proj", "q"), ("k_proj", "k"), ("v_proj", "v"), ("o_proj", "o")),
+    "ssm": (("r_proj", "r"), ("k_proj_ssm", "k"), ("v_proj_ssm", "v"), ("g_proj", "g"),
+            ("wkv_out", "o")),
+}
+
+
 def _prog_layer(p: dict, cfg: ArchConfig, layer_idx: int, rng, policy, t_prog, kernels):
-    _attn_only(cfg, layer_idx)
-    name = "L.attn"
-    attn = {
-        pk: _prog_dense(p["attn"][pk], f"{name}.{suffix}", rng, policy, t_prog, kernels)
-        for pk, suffix in (("q_proj", "q"), ("k_proj", "k"), ("v_proj", "v"), ("o_proj", "o"))
+    """One layer, named ``L.{kind}`` as the forward and decode steps name
+    it: the name is part of every programming-noise key."""
+    kind = layer_kind(cfg, layer_idx)
+    name = f"L.{kind}"
+    mixer = {
+        pk: _prog_dense(p[kind][pk], f"{name}.{suffix}", rng, policy, t_prog, kernels)
+        for pk, suffix in _PROJ[kind]
     }
     mlp = {
         k: _prog_dense(p["mlp"][k], f"{name}.mlp.{k}", rng, policy, t_prog, kernels)
         for k in ("wi", "wg", "wo")
     }
-    return {"attn": attn, "mlp": mlp}
+    return {kind: mixer, "mlp": mlp}
 
 
 def program_params(

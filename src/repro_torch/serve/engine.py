@@ -45,12 +45,16 @@ def _head_logits(params, hidden, *, policy, rng, programmed, kernels=True):
 
 
 def _cache_from_prefill(states, batch, s_prefill, max_len, dtype, device):
-    """The dense serving cache from the prefill's per-layer K / V, cast to
-    ``dtype`` and zero-padded along the length axis to ``max_len``."""
-    pad = lambda x: torch.nn.functional.pad(  # noqa: E731
-        x.to(dtype), (0, 0, 0, 0, 0, max_len - x.shape[2]))
+    """The dense serving cache from the prefill's per-layer states: K / V
+    cast to ``dtype`` and zero-padded along the length axis to
+    ``max_len``; recurrent (RWKV6) states pass through as they are."""
+    def pad(key, x):
+        if key in ("k", "v"):
+            return torch.nn.functional.pad(x.to(dtype), (0, 0, 0, 0, 0, max_len - x.shape[2]))
+        return x
+
     return {"pos": torch.full((batch,), s_prefill, dtype=torch.int32, device=device),
-            "blocks": {seg: {k: pad(x) for k, x in st.items()} for seg, st in states.items()}}
+            "blocks": {seg: {k: pad(k, x) for k, x in st.items()} for seg, st in states.items()}}
 
 
 def make_prefill_step(

@@ -10,7 +10,7 @@
   tokens the same under strict FIFO and the scheduler.
 * ``serve_memristive_lm``: the reference example's lines; its digital
   tokens equal the reference's ``greedy_generate`` on the same model and
-  prompts (qwen2-smoke: the reference example's rwkv6 is not ported).
+  prompts (rwkv6-smoke, the reference example's model).
 """
 import contextlib
 import io
@@ -73,7 +73,7 @@ def test_serve_memristive_lm(capsys):
     assert out[2] == f"analog  tokens: {analog[0].tolist()}"
     assert out[3].startswith("token agreement across batch: ")
     assert digital.shape == analog.shape == (4, 13)
-    jcfg = j_get_smoke("qwen2-0.5b")
+    jcfg = j_get_smoke("rwkv6-1.6b")
     prompts = jax.random.randint(jax.random.PRNGKey(1), (4, 12), 0, jcfg.vocab)
     want = j_greedy_generate(j_init_params(jcfg, jax.random.PRNGKey(0)), jcfg, prompts, 12,
                              compute_dtype=jnp.float32)
