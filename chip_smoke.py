@@ -91,7 +91,19 @@ Phases (any failure exits non-zero; nothing is caught):
    first-token logits within max rel 1e-4), and the default mode at 2
    layers with ``--kernels on`` against ``off`` and ``--per_call``
    (tokens and every logit row bit-equal); ``--only rwkv6`` runs this
-   phase alone after the build;
+   phase alone after the build; then qwen3-moe-235b-a22b (the
+   token-choice top-8 MoE over 128 experts, ``moe``): at qwen3-moe-smoke
+   widths the launcher's default mode and ``--requests`` with the kernels
+   bit-equal to their plain versions, K2 / K3 at its head layout (16
+   query heads a KV head, head_dim 128) bit-equal and timed, and at full
+   width, its first layer of 94 under ``make_policy("mem_faithful")``
+   (49.75 GB programmed): the dense ``greedy_generate`` timed and
+   profiled (init, programming, peak memory, TTFT, ITL, tok/s, idle
+   share, K1 a decode step against its bound), K1 over the programmed
+   expert stack in one launch bit-equal to K1 on every expert alone and,
+   on a sub-stack, to its plain version, then the launcher's default mode
+   (K1, the stacked K1 and K6 by the formula) and ``--requests 8 --slots
+   4 --gen 8``; ``--only moe`` runs this phase alone after the build;
 5. the trainer (``train``): ``repro_torch.launch.train.main`` at
    qwen2-0.5b's full width and depth under ``make_policy
    ("mem_faithful")``, batch 8 x 128 tokens, loss chunks of 64, remat
@@ -996,8 +1008,8 @@ def path_launches() -> dict:
     from repro_torch.kernels import ops
 
     return {name: ops.COUNTERS[name].count for name in
-            ("fused_sliced_matmul", "paged_decode_attention", "paged_chunk_attention",
-             "program_noise")}
+            ("fused_sliced_matmul", "fused_sliced_matmul_stack", "paged_decode_attention",
+             "paged_chunk_attention", "program_noise")}
 
 
 def _need_launched(phase, launched, names):
@@ -1368,6 +1380,341 @@ def rwkv6(card, counters):
               f"{on[1].shape[0] * on[1].shape[1]} logit rows of the programmed run with the "
               "kernels, bit for bit")
     print(f"rwkv6 at {CUT_LAYERS} layers with the plain versions: {t_off:.1f} s  [{card}]")
+
+
+# ---------------------------------------------------------------------------
+# the MoE family: qwen3-moe-235b-a22b at full width, its first layer
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "qwen3-moe-235b-a22b"
+# one of its 94 layers: the layer's 2,416 M expert weights, 71 M attention
+# weights and the 622 M-weight vocab head, 49.75 GB programmed (16 B a
+# weight) beside 14.93 GB of float32 params, fill the card
+MOE_LAUNCH = ["--arch", MOE_ARCH, "--layers", "1", "--policy", "mem_faithful", "--batch", "4",
+              "--prompt_len", "16", "--gen", "16"]
+MOE_REQUESTS = ["--arch", MOE_ARCH, "--layers", "1", "--policy", "mem_faithful", "--requests",
+                "8", "--slots", "4", "--gen", "8"]
+MOE_SMOKE = ["--arch", MOE_ARCH, "--smoke", "--policy", "mem_faithful"]
+MOE_PROFILED = 4  # decode steps of the profiled generation
+MOE_SUB = (0, 37, 64, 127)  # the experts of the sub-stack held against the plain K1
+
+
+def stack_bound(hit: int, rows: int, e: int, m: int, k: int, n: int, padded: bool = False):
+    """K1's bound for one call on an expert stack of ``e`` experts of
+    (k, n) weights, ``m`` buffer rows an expert (int8 x int8: 16 slice
+    pairs, 32 operations a row-weight, 16 B of slices a weight): the
+    slices of the ``hit`` experts that hold a routed row, the whole input
+    and output once, and the operations of the ``rows`` routed rows (a
+    zero padding row gives exact zeros with no work, as the plain version
+    skips an expert with none).  ``padded`` counts every buffer row and
+    expert instead, as the kernel computes them."""
+    if padded:
+        hit, rows = e, e * m
+    return bound_ms(16 * hit * k * n + 4 * e * m * (k + n), 32 * rows * k * n)
+
+
+def moe_step_bound(cfg, batch: int, calls, padded: bool = False):
+    """K1's bound for one decode step of ``batch`` rows: the attention
+    projections and the vocab head on ``batch`` rows, each bound by its
+    bytes or its operations, and the step's expert-stack ``calls``
+    (experts hit, routed rows, E, M, K, N) by :func:`stack_bound`.
+    Returns the sum, that of the expert stacks and that of the rest."""
+    d, v = cfg.d_model, cfg.vocab
+    qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    rest = sum(bound_ms(16 * k * n + 4 * batch * (k + n), 32 * batch * k * n)[0]
+               for k, n in ((d, qd), (d, kvd), (d, kvd), (qd, d), (d, v)))
+    experts = sum(stack_bound(*c, padded=padded)[0] for c in calls)
+    return experts + rest, experts, rest
+
+
+def sm_workspace_floats() -> int:
+    """Floats of K1's workspace now held (freed when a call needs more)."""
+    from repro_torch.kernels import sliced_matmul as sm
+
+    return sum(f.numel() for _, f in sm._workspace.values())
+
+
+def stack_calls(fn) -> list:
+    """Run ``fn()`` with K1's calls on expert stacks recorded, in order:
+    (experts with a routed row, routed rows, E, M, K, N) of each.  Each
+    record waits for the card: not for a timed run."""
+    from repro_torch.kernels import sliced_matmul as sm
+
+    seen, inner = [], sm.fused_sliced_matmul_cuda
+
+    def record(x, ws, sw, **kw):
+        if x.dim() == 3:
+            hit = x.ne(0).any(dim=2)
+            seen.append((int(hit.any(dim=1).sum()), int(hit.sum()), *x.shape, ws.shape[-1]))
+        return inner(x, ws, sw, **kw)
+
+    sm.fused_sliced_matmul_cuda = record
+    try:
+        fn()
+    finally:
+        sm.fused_sliced_matmul_cuda = inner
+    return seen
+
+
+def check_stack(timer, prog_experts, cfg, card, summary):
+    """K1 over a full-width expert stack (qwen3-moe's ``wi``, 128 experts
+    of 4,096 x 1,536, M = 32 rows an expert as at a decode step of batch 4:
+    live rows first, the rest the zero padding row): one launch bit-equal
+    to the single-weight K1 on every expert alone (``dynamic`` over 128-row
+    tiles, the default mode's, and ``dynamic_row``, the ``ServeLoop``'s),
+    and on a sub-stack of ``MOE_SUB`` experts of ``wi`` and ``wo``
+    bit-equal to the plain version; the stacked call and the 128 single
+    calls timed, the stacked call and the plain version on the sub-stack
+    timed.  Its bound counts the routed rows (:func:`stack_bound`)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sliced_matmul as sm
+    from repro_torch.launch.dryrun import make_policy
+
+    dcfg = make_policy("mem_faithful").default
+    e, d, f = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_expert
+    m = 32
+    g = torch.Generator(device="cuda").manual_seed(21)
+
+    def inputs(experts, k):
+        x = torch.zeros((experts, m, k), device="cuda")
+        for i in range(experts):
+            live = 1 + (7 * i) % 6  # 1-6 routed rows, then padding
+            x[i, :live] = torch.randn((live, k), generator=g, device="cuda")
+        return x
+
+    wi = prog_experts["wi"]
+    slices, scale = wi.slices[0], wi.scale[0]  # the one layer
+    x = inputs(e, d)
+    for adc in ("dynamic", "dynamic_row"):
+        kw = dict(input_spec=dcfg.input_spec, weight_spec=dcfg.weight_spec,
+                  array_size=dcfg.array_size, rdac=dcfg.rdac, radc=dcfg.radc, adc_mode=adc,
+                  bm=128)
+        y = ops.fused_sliced_matmul(x, slices, scale, **kw)
+        for i in range(e):
+            one = sm.fused_sliced_matmul_cuda(x[i], slices[i], scale[i], **kw)
+            if not torch.equal(y[i], one):
+                raise AssertionError(f"stacked K1 {adc}: expert {i} differs from K1 alone by "
+                                     f"{float((y[i] - one).abs().max())}")
+        if not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"stacked K1 {adc}: non-finite output")
+    print(f"stacked K1 (wi, {e} experts of {d} x {f}, M = {m} an expert, dynamic and "
+          f"dynamic_row): each expert bit-equal to K1 on it alone")
+    kw = dict(input_spec=dcfg.input_spec, weight_spec=dcfg.weight_spec,
+              array_size=dcfg.array_size, rdac=dcfg.rdac, radc=dcfg.radc, adc_mode="dynamic",
+              bm=128)
+    t_stack = timer(lambda: ops.fused_sliced_matmul(x, slices, scale, **kw))
+    t_loop = timer(lambda: [sm.fused_sliced_matmul_cuda(x[i], slices[i], scale[i], **kw)
+                            for i in range(e)])
+    hit = x.ne(0).any(dim=2)
+    rows, live = int(hit.sum()), int(hit.any(dim=1).sum())
+    b, by = stack_bound(live, rows, e, m, d, f)
+    pb, pby = stack_bound(live, rows, e, m, d, f, padded=True)
+    plan = sm.plan_k1(m, d, f, dcfg.array_size[0], 4, 4, "dynamic", 128, dcfg.radc)
+    print(f"stacked K1 wi ({e} x {plan.ctas} CTAs, one launch): {t_stack:.3f} ms; {e} single "
+          f"launches {t_loop:.3f} ms; bound {b:.3f} ms ({by}; the {rows} routed rows of "
+          f"{e * m}, {live} experts hit), {b / t_stack:.1%} of it; the bound of every buffer row "
+          f"as the kernel computes them {pb:.3f} ms ({pby})  [{card}]")
+
+    idx = torch.tensor(MOE_SUB, device="cuda")
+    plain_ms = sub_ms = 0.0
+    for name, k in (("wi", d), ("wo", f)):
+        pw = prog_experts[name]
+        ss, sc = pw.slices[0][idx], pw.scale[0][idx]
+        xs = inputs(len(MOE_SUB), k)
+        y = ops.fused_sliced_matmul(xs, ss, sc, **kw)
+        t0 = time.monotonic()
+        yp = ops.fused_sliced_matmul(xs, ss, sc, kernels=False, **kw)
+        torch.cuda.synchronize()
+        t_plain = (time.monotonic() - t0) * 1e3
+        if not torch.equal(y, yp):
+            raise AssertionError(f"stacked K1 {name} sub-stack: differs from the plain version by "
+                                 f"{float((y - yp).abs().max())}")
+        t_sub = timer(lambda: ops.fused_sliced_matmul(xs, ss, sc, **kw))
+        if name == "wi":
+            plain_ms, sub_ms = t_plain, t_sub
+        print(f"stacked K1 {name} on experts {MOE_SUB} (M = {m}, padding rows included): "
+              f"bit-equal to the plain version; kernel {t_sub:.3f} ms, plain {t_plain:.1f} ms "
+              f"on these inputs  [{card}]")
+        del ss, sc
+    # `ms` and `bound_ms` are of the 128-expert call; `plain_ms` and
+    # `sub_ms` of the same MOE_SUB sub-stack of `wi`
+    summary["fused_sliced_matmul_stack"] = dict(
+        max_abs_err=0.0, ms=t_stack, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+        library_ms=None, extra=dict(plain_experts=len(MOE_SUB), sub_ms=sub_ms,
+                                    bound_ms_padded=pb))
+
+
+def moe(timer, card, counters, summary, floor):
+    """qwen3-moe-235b-a22b, its token-choice top-8 MoE over 128 experts:
+    at qwen3-moe-smoke widths the launcher's default mode and ``--requests``
+    with the kernels bit-equal to their plain versions (tokens and every
+    logit row); K2 / K3 at its head layout (64 query heads over 4 KV heads
+    of 128) bit-equal to their plain versions and timed; at full width,
+    its first layer of 94 (``--layers 1``), under ``make_policy
+    ("mem_faithful")``: the dense ``greedy_generate`` (batch 4, prompt 16,
+    16 new) timed and profiled (init, programming, bytes, peak memory,
+    TTFT, ITL, tok/s, idle share, K1 device ms a decode step against its
+    bound), the stacked K1 on the programmed expert stacks against the
+    single K1 and the plain version (``check_stack``), then the
+    launcher's default mode (K1 5 x 17, the stacked K1 3 x 17, K6 by the
+    formula) and ``--requests 8 --slots 4 --gen 8`` (K1, the stacked K1,
+    K2, K3 launched, every request finished)."""
+    from repro_torch.configs import get
+    from repro_torch.core.prng import PRNGKey, randint
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launcher
+    from repro_torch.launch.dryrun import make_policy
+    from repro_torch.models import init_params, program_params, programmed_byte_size
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.moe import moe_capacity
+    from repro_torch.serve import greedy_generate
+
+    cfg = get(MOE_ARCH).replace(n_layers=1)
+    # the MoE path with the kernels against their plain versions, smoke widths
+    small = MOE_SMOKE + ["--batch", "2", "--prompt_len", "8", "--gen", "4"]
+    ops.reset_counters()
+    on = launcher.main(small + ["--kernels", "on"], collect_logits=True)
+    n_stack = ops.COUNTERS["fused_sliced_matmul_stack"].count
+    off = launcher.main(small + ["--kernels", "off"], collect_logits=True)
+    if (n_stack != 3 * 2 * 5 or ops.COUNTERS["fused_sliced_matmul_stack"].count != n_stack
+            or not (torch.equal(on[0], off[0]) and torch.equal(on[1], off[1]))):
+        raise AssertionError(f"qwen3-moe-smoke default mode: kernels {on[0].tolist()} against "
+                             f"plain {off[0].tolist()}, {n_stack} stacked launches")
+    reqs = MOE_SMOKE + ["--requests", "4", "--slots", "2", "--gen", "4", "--prompt_len", "12",
+                        "--prefill_chunk", "8"]
+    rep_on = launcher.main(reqs + ["--kernels", "on"], collect_logits=True)
+    rep_off = launcher.main(reqs + ["--kernels", "off"], collect_logits=True)
+    for a, b in zip(rep_on.results, rep_off.results):
+        same = all(np.array_equal(p, q) for p, q in zip(a.logits, b.logits))
+        if a.tokens != b.tokens or not same:
+            raise AssertionError(f"qwen3-moe-smoke --requests: request {a.rid} differs from the "
+                                 "plain versions")
+    print(f"qwen3-moe-smoke with the kernels: the default mode's tokens and "
+          f"{on[1].shape[0] * on[1].shape[1]} logit rows, and --requests' tokens and logits of "
+          f"{len(rep_on.results)} requests, bit-equal to the plain versions  [{card}]")
+    del on, off, rep_on, rep_off
+
+    print(f"K2 / K3 at {MOE_ARCH}'s heads ({cfg.n_heads} query heads over {cfg.n_kv_heads} KV "
+          f"heads of {cfg.head_dim}):")
+    check_k2_k3(timer, cfg, {}, card, floor)
+
+    # full width, its first layer: the generation timed and profiled
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = init_params(cfg, PRNGKey(0), device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.monotonic() - t0
+    pol = make_policy("mem_faithful")
+    t0 = time.monotonic()
+    prog = program_params(params, cfg, pol, PRNGKey(0))
+    torch.cuda.synchronize()
+    t_prog = time.monotonic() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"{MOE_ARCH} (1 of 94 layers): init {n_params / 1e6:.1f} M params in {t_init:.2f} s; "
+          f"programmed {programmed_byte_size(prog) / 1e6:.1f} MB of crossbar state in "
+          f"{t_prog:.2f} s; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB  [{card}]")
+    prompts = randint(PRNGKey(1), (4, 16), 0, cfg.vocab, device="cuda")
+
+    def generate(n):
+        return greedy_generate(params, cfg, prompts, n, policy=pol,
+                               compute_dtype=torch.float32, programmed=prog)
+
+    generate(1)  # warm-up
+    wall = {}
+    for n in (0, MOE_PROFILED, 16):
+        t0 = time.monotonic()
+        out = generate(n)
+        torch.cuda.synchronize()
+        wall[n] = time.monotonic() - t0
+    if out.shape != (4, 17) or not bool(((out >= 0) & (out < cfg.vocab)).all()):
+        raise AssertionError(f"{MOE_ARCH}: tokens {out}")
+    pre, whole = wall[0], wall[16]
+    print(f"{MOE_ARCH} dense greedy_generate, mem_faithful (dynamic ADC), batch 4, prompt 16: "
+          f"TTFT (prefill of 64 rows and the first token) {pre * 1e3:.1f} ms, 16 new tokens in "
+          f"{whole * 1e3:.1f} ms: {4 * 16 / whole:.2f} tok/s, ITL {(whole - pre) / 16 * 1e3:.1f} "
+          f"ms; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+    g_pre = device_groups(lambda: generate(0))
+    g_all = device_groups(lambda: generate(MOE_PROFILED))
+    print_busy(f"{MOE_ARCH}'s generation (the prefill and {MOE_PROFILED} decode steps)", g_all,
+               wall[MOE_PROFILED] * 1e3, card, k1_calls=8 * (MOE_PROFILED + 1))
+    # the bound of a decode step counts the rows routed in this run's steps
+    calls = stack_calls(lambda: generate(MOE_PROFILED))
+    if len(calls) != 3 * (1 + MOE_PROFILED):
+        raise AssertionError(f"{MOE_ARCH}: {len(calls)} stacked K1 calls in the prefill and "
+                             f"{MOE_PROFILED} decode steps")
+    steps = [calls[3 * i:3 * i + 3] for i in range(1, 1 + MOE_PROFILED)]
+    b_all, b_exp, b_rest = (sum(x) / MOE_PROFILED for x in zip(
+        *(moe_step_bound(cfg, 4, c) for c in steps)))
+    p_all, p_exp, _ = moe_step_bound(cfg, 4, steps[0], padded=True)
+    hits = ", ".join("/".join(str(c[0]) for c in st) for st in steps)
+    rows = ", ".join("/".join(str(c[1]) for c in st) for st in steps)
+    print(f"  decode steps' expert stacks (wi/wg/wo, {steps[0][0][2]} experts x "
+          f"{steps[0][0][3]} buffer rows): experts hit {hits}; routed rows {rows}")
+    if g_pre and g_all:
+        k1_pre = g_pre.get("K1", (0.0, 0))[0]
+        k1 = (g_all.get("K1", (0.0, 0))[0] - k1_pre) / MOE_PROFILED
+        print(f"  K1 in the prefill (64 rows; the experts' buffers 32 rows each): {k1_pre:.3f} ms "
+              "device")
+        print(f"  K1 a decode step: {k1:.3f} ms device against its bound {b_all:.3f} ms "
+              f"(the routed rows: experts {b_exp:.3f} ms, attention and head {b_rest:.3f} ms), "
+              f"{b_all / k1:.1%} of it; the bound of every buffer row as the kernel computes "
+              f"them {p_all:.3f} ms (experts {p_exp:.3f} ms)  [{card}]")
+    else:
+        print(f"  K1 a decode step: not measured; its bound {b_all:.3f} ms (every buffer row: "
+              f"{p_all:.3f} ms)")
+    # the stacked K1's workspace beside the programmed layer: K-block
+    # partials of 4 B x E x nk x M x N a call (kernels/sliced_matmul.py)
+    e_, tile = cfg.moe.n_experts, pol.default.array_size[0]
+    per_row = max(4 * e_ * (k // tile) * n for k, n in
+                  ((cfg.d_model, cfg.moe.d_expert), (cfg.moe.d_expert, cfg.d_model)))
+    free = (torch.cuda.mem_get_info()[0] + torch.cuda.memory_reserved()
+            - torch.cuda.memory_allocated() + 4 * sm_workspace_floats())
+    cap_max = free // per_row // 4
+    s_max = next(s for s in range(1, 1 << 20) if moe_capacity(cfg.moe, s + 1) > cap_max)
+    print(f"  stacked K1 workspace: {per_row / 1e6:.2f} MB a buffer row; {free / 2**30:.2f} GiB "
+          f"free beside the programmed layer holds {cap_max} rows an expert at batch 4: "
+          f"prompts up to {s_max} tokens in one prefill  [{card}]")
+    check_stack(timer, prog["blocks"]["seg0"]["moe"]["experts"], cfg, card, summary)
+    del params, prog, out
+    torch.cuda.empty_cache()
+
+    # the launcher: its default mode, then --requests
+    ops.reset_counters()
+    tokens = launcher.main(MOE_LAUNCH)
+    torch.cuda.synchronize()
+    launched = path_launches()
+    k6 = (5 + 3 * cfg.moe.n_experts) * pol.default.weight_spec.n_slices
+    print(f"{MOE_ARCH} launch default mode: launches {launched}; expected K1 {5 * 17}, stacked "
+          f"K1 {3 * 17}, K6 {k6}")
+    if (launched["fused_sliced_matmul"] != 5 * 17
+            or launched["fused_sliced_matmul_stack"] != 3 * 17
+            or launched["program_noise"] != k6 or launched["paged_decode_attention"]
+            or launched["paged_chunk_attention"]):
+        raise AssertionError(f"{MOE_ARCH} launch default mode: launches {launched}")
+    if tokens.shape != (4, 17) or not bool(((tokens >= 0) & (tokens < cfg.vocab)).all()):
+        raise AssertionError(f"{MOE_ARCH} launch default mode: tokens {tokens}")
+    for name, n in launched.items():
+        counters[name] = counters.get(name, 0) + n
+    del tokens
+    torch.cuda.empty_cache()
+    ops.reset_counters()
+    rep = launcher.main(MOE_REQUESTS)
+    torch.cuda.synchronize()
+    launched = path_launches()
+    print(f"{MOE_ARCH} launch --requests 8 --slots 4: launches {launched}; {rate_line(rep)}  "
+          f"[{card}]")
+    _need_launched(f"{MOE_ARCH} --requests", launched,
+                   ("fused_sliced_matmul", "fused_sliced_matmul_stack", "paged_decode_attention",
+                    "paged_chunk_attention"))
+    for r in rep.results:
+        if r.finish_reason != "length" or len(r.tokens) != 8:
+            raise AssertionError(f"{MOE_ARCH} --requests: request {r.rid}: {r.finish_reason}")
+    for name, n in launched.items():
+        counters[name] = counters.get(name, 0) + n
+    del rep
+    torch.cuda.empty_cache()
 
 
 def check_circuit(card):
@@ -2244,7 +2591,7 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(prog="chip_smoke.py")
-    ap.add_argument("--only", choices=("train", "rwkv6"), default=None,
+    ap.add_argument("--only", choices=("train", "rwkv6", "moe"), default=None,
                     help="build the kernels and run this phase alone (no kernels line, no "
                          "final line)")
     args = ap.parse_args(argv)
@@ -2297,6 +2644,9 @@ def main(argv=None) -> int:
     if args.only == "rwkv6":
         timed("rwkv6", rwkv6, card, counters)
         return 0
+    if args.only == "moe":
+        timed("moe", moe, timer, card, counters, summary, floor)
+        return 0
     timed("check_k1", check_k1, timer, qcfg, summary)
     timed("check_k1_tiles", check_k1_tiles, timer, summary, card)
     timed("check_k2_k3", check_k2_k3, timer, qcfg, summary, card, floor)
@@ -2316,6 +2666,8 @@ def main(argv=None) -> int:
     del params
     torch.cuda.empty_cache()
     timed("rwkv6", rwkv6, card, counters)
+    torch.cuda.empty_cache()
+    timed("moe", moe, timer, card, counters, summary, floor)
     train_phases(timed, timer, qcfg, card, counters)
     counters["sliced_matmul"] = summary["sliced_matmul"]["launches"]
     counters["flash_attention"] = summary["flash_attention"]["launches"]
@@ -2325,6 +2677,9 @@ def main(argv=None) -> int:
     sources = {
         "fused_sliced_matmul": ("src/repro_torch/csrc/sliced_matmul.cuh",
                                 "src/repro/kernels/sliced_matmul.py:352"),
+        # the reference vmaps the fused kernel over the experts (models/moe.py:112-122)
+        "fused_sliced_matmul_stack": ("src/repro_torch/csrc/sliced_matmul.cuh",
+                                      "src/repro/kernels/sliced_matmul.py:352"),
         "paged_decode_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                    "src/repro/kernels/paged_attention.py:152"),
         "paged_chunk_attention": ("src/repro_torch/csrc/paged_attention.cu",
@@ -2344,6 +2699,7 @@ def main(argv=None) -> int:
             name=name, route="cuda", source=src, replaces=repl, launches=counters[name],
             max_abs_err=s["max_abs_err"], ms=s["ms"], plain_ms=s["plain_ms"],
             bound_ms=s["bound_ms"], bound_by=s["bound_by"], library_ms=s["library_ms"],
+            **s.get("extra", {}),
         ))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -418,9 +418,14 @@ def dpe_matmul_prepared(
     Drift multiplies every slice value by its factor before the analog
     products: inside K1 as the slices are read, or on the slice stack for
     the plain engine.  ``kernels=False`` is the explicit plain-version
-    override."""
+    override.  An expert stack (slices (E, Sw, Kp, Np), scales (E, nk, nn),
+    one ``t_prog``) takes x (E, M, K) to (E, M, n), each expert as a call
+    of its own (the reference's ``vmap`` over the expert axis): one K1
+    launch, ``dynamic`` ranges over each expert's rows; the circuit
+    backend solves expert by expert."""
+    stack = pw.slices.dim() == 4
     lead = x.shape[:-1]
-    xm = x.reshape(-1, x.shape[-1])
+    xm = x if stack else x.reshape(-1, x.shape[-1])
     f = _drift_factor(cfg, pw.t_prog, t_now)
     backend = resolve_backend(cfg)
     if backend == "fused":
@@ -428,10 +433,16 @@ def dpe_matmul_prepared(
             xm.to(torch.float32), pw.slices, pw.scale,
             input_spec=cfg.input_spec, weight_spec=cfg.weight_spec,
             array_size=cfg.array_size, rdac=cfg.rdac, radc=cfg.radc,
-            adc_mode=cfg.adc_mode, bm=range_rows(cfg, xm.shape[0]),
+            adc_mode=cfg.adc_mode, bm=range_rows(cfg, xm.shape[-2]),
             drift=1.0 if f is None else f, kernels=kernels,
         )
-        return y[:, :n].reshape(*lead, n)
+        return y[..., :n].reshape(*lead, n)
+    if stack:
+        return torch.stack([
+            dpe_matmul_prepared(x[i], PreparedWeight(pw.slices[i], pw.scale[i], pw.t_prog),
+                                n, cfg, kernels, t_now)
+            for i in range(x.shape[0])
+        ])
     slices = pw.slices if f is None else pw.slices * torch.tensor(f, device=x.device)
     xs, sx = prepare_input(xm, cfg)
     if backend == "circuit":
@@ -446,7 +457,8 @@ def dpe_matmul_folded(
 ) -> torch.Tensor:
     """Fast-mode ``x @ w`` through an already-folded noisy weight; drift
     scales ``w_eff`` in its store dtype (the fold is linear in the slice
-    values).  ``FoldedWeight`` is a plain product (no kernel)."""
+    values).  ``FoldedWeight`` is a plain product (no kernel); a stack's
+    ``w_eff`` (E, Kp, Np) takes x (E, M, K) in one batched product."""
     lead = x.shape[:-1]
     xm = x.reshape(-1, x.shape[-1])
     w_eff = fw.w_eff
@@ -454,7 +466,9 @@ def dpe_matmul_folded(
     if f is not None:
         w_eff = w_eff * torch.tensor(f, device=x.device).to(w_eff.dtype)
     x_deq = fake_quant_input(xm, cfg).to(w_eff.dtype)
-    y = _dot(x_deq, w_eff)[:, :n]
+    if w_eff.dim() == 3:
+        x_deq = x_deq.reshape(w_eff.shape[0], -1, x_deq.shape[-1])
+    y = _dot(x_deq, w_eff)[..., :n]
     return y.reshape(*lead, n).to(torch.float32)
 
 

@@ -67,7 +67,7 @@ def mem_matmul_prepared(
     kernels: bool = True,
 ) -> torch.Tensor:
     """Weight-stationary ``x @ w`` through programmed crossbar state,
-    returned in ``x``'s dtype."""
+    returned in ``x``'s dtype (an expert stack: x (E, M, K))."""
     return dpe_apply(x, prog, n, cfg, kernels).to(x.dtype)
 
 

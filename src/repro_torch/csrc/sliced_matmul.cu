@@ -47,14 +47,19 @@ int run(const dpe::Args& A, bool staged, int tile, const int* ip, const float* f
 
 }  // namespace
 
-// K1: raw x (M, K), leading dimension ldx; every slice value times
-// `drift` (1: the stored values).
-extern "C" int fused_sliced_matmul_launch(const float* x, int ldx, int M, int K,
+// K1: raw x (E, M, K), leading dimension ldx, on an expert stack of E
+// weights ws (E, Sw, Kp, Np), sw (E, nk, nn) -> out (E, M, Np) in one
+// launch; each expert runs as K1 on it alone, with its own `tk_stride`
+// tickets and `sc_stride` scratch floats (one weight: E = 1).  Every
+// slice value is multiplied by `drift` (1: the stored values).
+extern "C" int fused_sliced_matmul_launch(const float* x, int ldx, int M, int K, int E,
                                           const float* ws, const float* sw, float* part,
-                                          float* out, int* tickets, float* scratch, int Kp,
-                                          int Np, int tile, const int* ip, const float* fp,
+                                          float* out, int* tickets, int tk_stride,
+                                          float* scratch, long long sc_stride, int Kp, int Np,
+                                          int tile, const int* ip, const float* fp,
                                           const int* lp, float drift, cudaStream_t stream) {
-  dpe::Args A{x, ldx, K, nullptr, nullptr, ws, sw, part, out, tickets, scratch, M, Kp, Np, drift};
+  dpe::Args A{x, ldx, K, nullptr, nullptr, ws, sw, part, out, tickets, scratch, M, Kp, Np, drift,
+              E, tk_stride, sc_stride};
   return run(A, false, tile, ip, fp, lp, stream);
 }
 

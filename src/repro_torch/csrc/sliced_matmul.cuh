@@ -62,6 +62,13 @@
 //   * K-block sum: with nk > 1 K-blocks the recombined partials go to
 //     device memory; the last of the nk CTAs of an output block (an
 //     atomic ticket) adds them in K order from 0.0 and resets the ticket.
+//   * Expert stack (the reference's vmap of the fused kernel over an MoE
+//     layer's experts, models/moe.py:112-122): one launch for E experts,
+//     grid y over (expert, K-block); a CTA offsets x, sw, out and its
+//     partials, tickets and scratch by its expert and then runs as a call
+//     on that expert alone (a `dynamic` range tile never spans two
+//     experts), so each expert's output is bit-equal to K1 on it alone.
+//     One tensor map covers the stack's E*Sw*Kp rows.
 //
 // What holds it back (PERF.md; chip_smoke.py and tools/k1_table.py
 // measure it): every CTA is a chain of latencies (the TMA boxes arrive
@@ -114,6 +121,13 @@ struct Args {
                     // decode pairs (nk, nn, Sx, MR, Sw, T)
   int M, Kp, Np;
   float drift;      // conductance decay: each slice value times it as loaded
+  // An expert stack (E > 1): x (E, M, K), ws (E, Sw, Kp, Np), sw (E, nk,
+  // nn), out (E, M, Np); grid y runs over (expert, K-block), and each
+  // expert has its own partials, `tk_stride` tickets and `sc_stride`
+  // scratch floats.
+  int experts = 1;
+  int tk_stride = 0;
+  long long sc_stride = 0;
 };
 
 // Launch geometry, computed by kernels/sliced_matmul.py::plan_k1.
@@ -373,9 +387,18 @@ sliced_matmul_kernel(const __grid_constant__ CUtensorMap wmap, Args A, bool stag
   const bool chain_warp = warp < nwc * L.nwr;
   const int rank = blockIdx.x % csize;  // the cluster rank where clusters are used
   const int jw = rank % SW, slab = rank / SW;
-  const int j = blockIdx.x / csize, kb = blockIdx.y, z = blockIdx.z;
   const int M = A.M, Kp = A.Kp, Np = A.Np;
   const int nn = Np / T, nk = Kp / T;
+  const int j = blockIdx.x / csize, kb = blockIdx.y % nk, z = blockIdx.z;
+  const int e = blockIdx.y / nk;  // the expert of a stack (0 for one weight)
+  if (e) {  // this expert's operands and workspace: it runs as a call of its own
+    A.x += (size_t)e * M * A.ldx;
+    A.sw += (size_t)e * nk * nn;
+    A.out += (size_t)e * M * Np;
+    if (A.part) A.part += (size_t)e * nk * M * Np;
+    A.tickets += (size_t)e * A.tk_stride;
+    if (A.scratch) A.scratch += (size_t)e * A.sc_stride;
+  }
   const int col0 = (cwp * 32 + lane) * CW;  // first of this thread's columns in the slab
   const int r0 = rwp * RW;                  // first of this thread's rows in the unit
   const bool quant = P.radc > 1;
@@ -395,7 +418,8 @@ sliced_matmul_kernel(const __grid_constant__ CUtensorMap wmap, Args A, bool stag
   if (tid == 0) {
 #pragma unroll
     for (int g = 0; g < 4; ++g)
-      tma_load_2d(W + g * (T / 4) * C, &wmap, j * T + slab * C, jw * Kp + kb * T + g * (T / 4),
+      tma_load_2d(W + g * (T / 4) * C, &wmap, j * T + slab * C,
+                  (e * SW + jw) * Kp + kb * T + g * (T / 4),
                   &wbar[g], (uint32_t)(sizeof(float) * (T / 4) * C));
   }
   const float swv = A.sw[kb * nn + j];
@@ -687,10 +711,13 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// The weight slices (Sw, Kp, Np) as a 2-D tensor (Sw*Kp rows of Np) in
-// boxes of (T/4 rows x C columns): a host-side encoding, no device work.
-// Programmed weights stay put, so the encodings are kept in a small cache
-// keyed on the tensor and box (the encoding costs host time per call).
+// The weight slices (Sw, Kp, Np) -- of an expert stack (E, Sw, Kp, Np) --
+// as one 2-D tensor (E*Sw*Kp rows of Np) in boxes of (T/4 rows x C
+// columns): a host-side encoding, no device work.  Programmed weights
+// stay put, so the encodings are kept in a small cache keyed on the
+// tensor and box (the encoding costs host time per call).  A stack has
+// one map: per-expert views lie a multiple of 64 KiB apart and would all
+// fall in one slot.
 inline int weight_map(CUtensorMap* map, const Args& A, int T, int C, int sw_n) {
   struct Key {
     const float* ws;
@@ -700,7 +727,7 @@ inline int weight_map(CUtensorMap* map, const Args& A, int T, int C, int sw_n) {
   static Key keys[SLOTS];
   static CUtensorMap maps[SLOTS];
   static std::mutex lock;
-  const Key key{A.ws, A.Np, sw_n * A.Kp, C, T};
+  const Key key{A.ws, A.Np, A.experts * sw_n * A.Kp, C, T};
   const int slot = (int)((reinterpret_cast<uintptr_t>(A.ws) >> 8) % SLOTS);
   {
     std::lock_guard<std::mutex> g(lock);
@@ -719,7 +746,7 @@ inline int weight_map(CUtensorMap* map, const Args& A, int T, int C, int sw_n) {
     if (q != cudaDriverEntryPointSuccess || !fn) return (int)cudaErrorNotSupported;
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
-  const cuuint64_t dims[2] = {(cuuint64_t)A.Np, (cuuint64_t)sw_n * A.Kp};
+  const cuuint64_t dims[2] = {(cuuint64_t)A.Np, (cuuint64_t)key.rows};
   const cuuint64_t strides[1] = {(cuuint64_t)A.Np * sizeof(float)};
   const cuuint32_t box[2] = {(cuuint32_t)C, (cuuint32_t)(T / 4)};
   const cuuint32_t estr[2] = {1, 1};
@@ -756,7 +783,8 @@ int launch(const Args& A, bool staged, const Plan& L, const Params& P, cudaStrea
   if (rc) return rc;
   const int csize = P.sw_n * L.sc;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(A.Np / T * csize), (unsigned)(A.Kp / T), (unsigned)L.z);
+  cfg.gridDim = dim3((unsigned)(A.Np / T * csize), (unsigned)(A.Kp / T * A.experts),
+                     (unsigned)L.z);
   cfg.blockDim = dim3((unsigned)L.threads);
   cfg.dynamicSmemBytes = (size_t)L.smem;
   cfg.stream = stream;
@@ -806,6 +834,7 @@ bool plan_ok(const Args& A, const Plan& L, const Params& P) {
       L.threads != (L.gx && chain_threads < GX_THREADS ? GX_THREADS : chain_threads) ||
       L.threads > MAX_THREADS || L.xs < L.mr * P.sx_n || L.xs % 4)
     return false;
+  if (A.experts < 1 || (long)A.Kp / T * A.experts > 65535) return false;
   if (L.units < 1 || L.upt < 1 || L.upc < 1 || L.z < 1 || (long)L.upc * L.z < L.units) return false;
   // a one-pass `dynamic` unit is a whole range tile
   const bool dyn = P.radc > 1 && P.adc_mode == 0;

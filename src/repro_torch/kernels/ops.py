@@ -9,7 +9,8 @@ Every kernel of the port is reached through a function here:
   comparison of ``chip_smoke.py``); there is no global switch and no
   environment variable.
 
-``COUNTERS`` are the launch counters of the kernel wrappers (K1-K6).
+``COUNTERS`` are the launch counters of the kernel wrappers (K1-K6, and
+K1 on an expert stack apart).
 """
 from __future__ import annotations
 
@@ -36,8 +37,8 @@ __all__ = [
 
 COUNTERS = {
     c.name: c
-    for c in (_sm.counter, _pa.decode_counter, _pa.chunk_counter, _sm.staged_counter,
-              _fa.counter, _pn.counter)
+    for c in (_sm.counter, _sm.stack_counter, _pa.decode_counter, _pa.chunk_counter,
+              _sm.staged_counter, _fa.counter, _pn.counter)
 }
 
 
@@ -71,7 +72,9 @@ def fused_sliced_matmul(
 ) -> torch.Tensor:
     """Fused faithful DPE matmul (K1): raw x (M, K) -> (M, Np) float32;
     ``bm`` rows share a ``dynamic`` ADC range; the slices are read times
-    the float32 conductance ``drift`` factor."""
+    the float32 conductance ``drift`` factor.  On an expert stack, x
+    (E, M, K), slices (E, Sw, Kp, Np) and scales (E, nk, nn) -> (E, M, Np),
+    it is one launch, each expert as the call on it alone."""
     kw = dict(
         input_spec=input_spec, weight_spec=weight_spec, array_size=array_size,
         rdac=rdac, radc=radc, adc_mode=adc_mode, bm=bm, drift=drift,

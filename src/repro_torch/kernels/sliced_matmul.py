@@ -10,6 +10,13 @@ ADC (``dynamic`` over a logical ``bm``-row tile, ``dynamic_row`` per row,
 ``fullscale`` static) and ``round(p/step)·step``; then the recombination
 by ``sigx·sigw`` and the block scales ``sx·sw``; K-blocks summed in order.
 
+K1 on an expert stack (``fused_sliced_matmul_cuda`` given x (E, M, K))
+replaces the reference's ``vmap`` of the fused kernel over an MoE layer's
+experts (``repro/models/moe.py`` :112-122, one Pallas kernel with an
+extra grid axis): one launch for every expert of a projection, each
+expert bit-equal to K1 on it alone; its plain version computes the live
+experts at once.  One weight is a stack of one.
+
 K4, the staged kernel, replaces ``sliced_matmul_pallas`` (``pallas_call``
 at :185; body ``_kernel`` :90): the same product on inputs already
 sliced and DAC'd by ``core.dpe.prepare_input`` (``xs``, ``sx``).  Its
@@ -66,6 +73,7 @@ __all__ = [
     "fused_sliced_matmul_cuda",
     "staged_sliced_matmul_cuda",
     "counter",
+    "stack_counter",
     "staged_counter",
 ]
 
@@ -74,6 +82,7 @@ TILES = (32, 64, 128)  # square crossbar tiles bk = bn the kernels take
 INPUT_SLICES = (3, 4, 5, 6, 8)  # input slice counts the kernels are built for
 MAX_SLICES = 8
 counter = LaunchCounter("fused_sliced_matmul")
+stack_counter = LaunchCounter("fused_sliced_matmul_stack")
 staged_counter = LaunchCounter("sliced_matmul")
 
 
@@ -107,9 +116,9 @@ def _prep_input(x: torch.Tensor, spec: SliceSpec, bk: int, rdac: int):
 
 
 def fused_sliced_matmul_ref(
-    x: torch.Tensor,  # (M, K) raw float input, K <= Kp
-    ws: torch.Tensor,  # (Sw, Kp, Np)
-    sw: torch.Tensor,  # (nk, nn)
+    x: torch.Tensor,  # (..., M, K) raw float input, K <= Kp
+    ws: torch.Tensor,  # (..., Sw, Kp, Np)
+    sw: torch.Tensor,  # (..., nk, nn)
     *,
     input_spec: SliceSpec,
     weight_spec: SliceSpec,
@@ -127,27 +136,48 @@ def fused_sliced_matmul_ref(
     partial last tile is ranged over its real rows alone, which gives the
     same bits (a zero row's partial sums are exact zeros, and a range
     clamped from below at 1e-30 cannot rise by a zero) at a fraction of
-    the cost for a call of a few rows.  Returns (M, Np) float32."""
+    the cost for a call of a few rows.  Leading dims of all three
+    operands are calls of their own: an expert stack (E, M, K) is the
+    reference's ``vmap`` of the fused kernel, every expert's ``dynamic``
+    range tiles its own.  An expert whose rows are all zero (no token
+    routed to it) gives exact zeros (+0.0, as the kernel does: zero
+    slices, zero pair sums, zero codes) and is not computed.  Returns
+    (..., M, Np) float32."""
+    if x.dim() == 3 and ws.dim() == 4:  # an expert stack: compute its live experts
+        live = torch.nonzero(x.reshape(x.shape[0], -1).ne(0).any(dim=1))[:, 0]
+        if live.numel() < x.shape[0]:
+            out = torch.zeros((x.shape[0], x.shape[1], ws.shape[-1]), dtype=torch.float32,
+                              device=x.device)
+            if live.numel():
+                out[live] = fused_sliced_matmul_ref(
+                    x[live], ws[live], sw[live], input_spec=input_spec,
+                    weight_spec=weight_spec, array_size=array_size, rdac=rdac, radc=radc,
+                    adc_mode=adc_mode, bm=bm, drift=drift)
+            return out
     bk, _ = array_size
-    m, k = x.shape
-    kp = ws.shape[1]
+    lead = x.shape[:-2]
+    m, k = x.shape[-2:]
+    kp = ws.shape[-2]
     if k > kp or kp - k >= bk:
         raise ValueError(f"K={k} inconsistent with prepared Kp={kp}")
     if m == 0:
-        return x.new_zeros((0, ws.shape[2]), dtype=torch.float32)
+        return x.new_zeros((*lead, 0, ws.shape[-1]), dtype=torch.float32)
     x = torch.nn.functional.pad(x.to(torch.float32), (0, kp - k))
-    xs, sx = _prep_input(x, input_spec, bk, rdac)
+    xs, sx = _prep_input(x.reshape(-1, kp), input_spec, bk, rdac)
+    xs = xs.reshape(xs.shape[0], *lead, m, kp).movedim(0, -3)  # (..., Sx, M, Kp)
+    sx = sx.reshape(*lead, m, -1)
     if drift != 1.0:
         ws = ws * torch.tensor(np.float32(drift), device=ws.device)
     kw = dict(input_spec=input_spec, weight_spec=weight_spec, array_size=array_size,
               radc=radc, adc_mode=adc_mode)
     tiled = adc_mode == "dynamic" and radc > 1
     full = m - m % bm if tiled else m
-    parts = [sliced_matmul_ref(xs[:, :full], sx[:full], ws, sw, bm=bm if tiled else m,
-                               **kw)] if full else []
+    parts = [sliced_matmul_ref(xs[..., :full, :], sx[..., :full, :], ws, sw,
+                               bm=bm if tiled else m, **kw)] if full else []
     if full < m:
-        parts.append(sliced_matmul_ref(xs[:, full:], sx[full:], ws, sw, bm=m - full, **kw))
-    return torch.cat(parts) if len(parts) > 1 else parts[0]
+        parts.append(sliced_matmul_ref(xs[..., full:, :], sx[..., full:, :], ws, sw,
+                                       bm=m - full, **kw))
+    return torch.cat(parts, dim=-2) if len(parts) > 1 else parts[0]
 
 
 @functools.lru_cache(maxsize=None)
@@ -343,20 +373,18 @@ def plan_k1(m: int, kp: int, np_: int, tile: int, sx_n: int, sw_n: int, adc_mode
 def _entry(name: str):
     fn = getattr(library(), name)
     fn.restype = ctypes.c_int
-    head = (
-        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]  # x, ldx, M, K
-        if name == "fused_sliced_matmul_launch"
-        else [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]  # xs, sx, M
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fused = name == "fused_sliced_matmul_launch"
+    fn.argtypes = (
+        ([p, i, i, i, i] if fused else [p, p, i])  # x, ldx, M, K, E | xs, sx, M
+        + [p, p, p, p, p]  # ws, sw, part, out, tickets
+        + ([i] if fused else [])  # tickets an expert
+        + [p]  # scratch
+        + ([ctypes.c_longlong] if fused else [])  # scratch floats an expert
+        + [i, i, i, p, p, p]  # Kp, Np, tile, host int / float params, plan
+        + ([ctypes.c_float] if fused else [])  # drift
+        + [p]  # stream
     )
-    fn.argtypes = head + [
-        ctypes.c_void_p, ctypes.c_void_p,  # ws, sw
-        ctypes.c_void_p, ctypes.c_void_p,  # part, out
-        ctypes.c_void_p, ctypes.c_void_p,  # tickets, scratch
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # Kp, Np, tile
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # host int / float params, plan
-    ] + ([ctypes.c_float] if name == "fused_sliced_matmul_launch" else []) + [  # drift
-        ctypes.c_void_p,  # stream
-    ]
     return fn
 
 
@@ -391,33 +419,57 @@ def _check_weights(who, ws, sw, input_spec, weight_spec, array_size, adc_mode, t
 # Workspace of the calls on one (device, stream), which run one after
 # another: K-block tickets (zero between calls: the kernel's last CTA of
 # an output block resets its ticket) and float scratch for the K-block
-# partials and the decode pairs (rewritten by every call).
+# partials and the decode pairs (rewritten by every call).  It grows to
+# the largest call and is kept: the K-block partials of a call are
+# 4 B x E x nk x M x Np (E experts of a stack, nk K-blocks), which is
+# nk times the call's output.
 _workspace: dict = {}
 
 
-def _buffers(device, stream: int, n_tickets: int, n_floats: int):
+def _buffers(device, stream: int, n_tickets: int, n_floats: int, shape=()):
+    """The workspace's (tickets, floats) addresses, grown to the call's
+    ``n_tickets`` and ``n_floats``; raises before it allocates past the
+    card's free memory (``shape``: the call's (E, nk, M, Np) for the
+    message)."""
     key = (device, stream)
-    tickets, floats = _workspace.get(key, (None, None))
+    tickets, floats = _workspace.pop(key, (None, None))
     if tickets is None or tickets.numel() < n_tickets:
         tickets = torch.zeros(max(n_tickets, 1 << 16), dtype=torch.int32, device=device)
     if floats is None or floats.numel() < n_floats:
-        floats = torch.empty(max(n_floats, 1 << 20), dtype=torch.float32, device=device)
+        floats = None  # the old buffer is freed before the new one is taken
+        n_floats = max(n_floats, 1 << 20)
+        free = (torch.cuda.mem_get_info(device)[0] + torch.cuda.memory_reserved(device)
+                - torch.cuda.memory_allocated(device))
+        if 4 * n_floats > free:
+            _workspace[key] = (tickets, torch.empty(0, device=device))
+            raise RuntimeError(
+                f"K1 needs {4 * n_floats / 2**30:.2f} GiB of workspace (K-block partials of "
+                f"4 B x E x nk x M x Np = {' x '.join(map(str, shape))}, and scratch) and the "
+                f"card has {free / 2**30:.2f} GiB free: call it on fewer rows")
+        floats = torch.empty(n_floats, dtype=torch.float32, device=device)
     _workspace[key] = (tickets, floats)
     return tickets.data_ptr(), floats.data_ptr()
 
 
-def _launch(name, lead, m, ws, sw, kp, np_, tile, plan, params, device, tail=()):
-    out = torch.empty((m, np_), dtype=torch.float32, device=device)
+def _launch(name, lead, m, ws, sw, kp, np_, tile, plan, params, device, tail=(), experts=1):
+    """One launch of ``name`` over ``experts`` weights (K1's stack; K4
+    takes one), each with its own workspace.  Returns (experts, M, Np)."""
+    out = torch.empty((experts, m, np_), dtype=torch.float32, device=device)
     if m == 0:
         return out
-    n_part = (kp // tile) * m * np_ if kp > tile else 0
+    nk = kp // tile
+    n_part = experts * nk * m * np_ if nk > 1 else 0
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        tickets, floats = _buffers(device, stream, plan.tickets, n_part + plan.scratch_floats)
+        tickets, floats = _buffers(device, stream, experts * plan.tickets,
+                                   n_part + experts * plan.scratch_floats,
+                                   (experts, nk, m, np_))
+        scratch = floats + 4 * n_part if plan.scratch_floats else None
+        mid = ((tickets, plan.tickets, scratch, plan.scratch_floats)
+               if name == "fused_sliced_matmul_launch" else (tickets, scratch))
         rc = _entry(name)(
             *lead, ws.data_ptr(), sw.data_ptr(), floats if n_part else None, out.data_ptr(),
-            tickets, floats + 4 * n_part if plan.scratch_floats else None,
-            kp, np_, tile, params[0], params[1], plan.ints_ptr, *tail, stream,
+            *mid, kp, np_, tile, params[0], params[1], plan.ints_ptr, *tail, stream,
         )
     check(rc, name)
     return out
@@ -442,26 +494,36 @@ def fused_sliced_matmul_cuda(
     scales -> (M, Np) float32; ``bm`` rows share a ``dynamic`` range
     (any ``bm >= 1``: ``bm >= M`` is one range over the whole call); a
     float32 ``drift`` factor other than 1 multiplies each slice value as
-    it is loaded (the plain version on ``ws * drift``).  Raises on
+    it is loaded (the plain version on ``ws * drift``).  An expert stack,
+    x (E, M, K), ws (E, Sw, Kp, Np), sw (E, nk, nn) -> (E, M, Np), is one
+    launch, expert ``i`` bit-equal to the call on ``x[i], ws[i], sw[i]``
+    (its ``dynamic`` range tiles its own, as in the reference's ``vmap``
+    of the fused kernel), counted by ``stack_counter``.  Raises on
     anything the kernel does not take (it never falls back to the plain
     version)."""
     who = "fused_sliced_matmul_cuda"
+    stack = x.dim() == 3
+    _need(who, x.dim() in (2, 3) and ws.dim() == x.dim() + 1 and sw.dim() == x.dim(),
+          "bad ranks: x (M, K), ws (Sw, Kp, Np), sw (nk, nn), or a stack of each")
+    xe, wse, swe = (x, ws, sw) if stack else (x[None], ws[None], sw[None])
+    e, m, k = xe.shape
+    _need(who, e >= 1 and wse.shape[0] == e and swe.shape[0] == e, "expert counts differ")
     tile, nk, kp, np_ = _check_weights(
-        who, ws, sw, input_spec, weight_spec, array_size, adc_mode,
+        who, wse[0], swe[0], input_spec, weight_spec, array_size, adc_mode,
         (("x", x), ("ws", ws), ("sw", sw)),
     )
     _need(who, bm >= 1, f"bm={bm} must be positive")
-    _need(who, x.dim() == 2, "x must be 2-D")
-    m, k = x.shape
     _need(who, k <= kp and kp - k < tile, f"K={k} inconsistent with Kp={kp}")
+    _need(who, e * nk <= 65535, f"{e} experts x {nk} K-blocks exceed grid y")
     params = _spec_arrays(input_spec, weight_spec, rdac, radc, adc_mode, tile)
     plan = plan_k1(m, kp, np_, tile, input_spec.n_slices, weight_spec.n_slices, adc_mode, bm,
                    radc)
-    out = _launch("fused_sliced_matmul_launch", (x.data_ptr(), k, m, k), m, ws, sw,
-                  kp, np_, tile, plan, params, x.device, (float(np.float32(drift)),))
+    out = _launch("fused_sliced_matmul_launch", (x.data_ptr(), k, m, k, e), m, ws, sw,
+                  kp, np_, tile, plan, params, x.device, (float(np.float32(drift)),),
+                  experts=e)
     if m:
-        counter.count += 1
-    return out
+        (stack_counter if stack else counter).count += 1
+    return out if stack else out[0]
 
 
 def staged_sliced_matmul_cuda(
@@ -499,4 +561,4 @@ def staged_sliced_matmul_cuda(
                   ws, sw, kp, np_, tile, plan, params, xs.device)
     if m:
         staged_counter.count += 1
-    return out
+    return out[0]

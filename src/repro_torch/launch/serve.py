@@ -30,15 +30,19 @@ Without ``--smoke`` the model is ``--arch`` (default qwen2-0.5b) at its
 published widths, with random weights drawn from ``PRNGKey(0)`` as the
 reference draws them; the prompts are ``randint(PRNGKey(1), (batch,
 prompt_len), 0, vocab)``, the reference's draw.  ``--arch`` takes the
-ported configurations: qwen2-0.5b, h2o-danube-1.8b and rwkv6-1.6b, the
-attention-free RWKV6, whose recurrent state the lockstep mode carries in
-its dense cache::
+ported configurations: qwen2-0.5b, h2o-danube-1.8b, the MoE models
+qwen3-moe-235b-a22b and kimi-k2-1t-a32b (token-choice top-8 experts in
+every layer; one layer of qwen3-moe fills an H100 at its published
+widths), and rwkv6-1.6b, the attention-free RWKV6, whose recurrent
+state the lockstep mode carries in its dense cache::
 
+    python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b --layers 1 \
+        --policy mem_faithful
     python -m repro_torch.launch.serve --arch rwkv6-1.6b --policy mem_faithful
 
 With ``--requests`` rwkv6 raises ``NotImplementedError``, as the
 reference does: the continuous-batching engine takes all-attention
-models only.
+models (the MoE ones included) only.
 """
 from __future__ import annotations
 

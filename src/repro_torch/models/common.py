@@ -59,19 +59,22 @@ def tree_leaves(tree, *, paths: bool = False) -> list:
     JAX's ``"a/b/c"`` string of the keys that lead to the leaf (``.name``
     for a NamedTuple field)."""
     out = []
-
-    def walk(t, prefix):
-        if isinstance(t, dict):
-            for k in sorted(t):
-                walk(t[k], prefix + (str(k),))
-        elif isinstance(t, tuple) and hasattr(t, "_fields"):
-            for name, v in zip(t._fields, t):
-                walk(v, prefix + ("." + name,))
-        elif isinstance(t, torch.Tensor):
-            out.append(("/".join(prefix), t) if paths else t)
-
-    walk(tree, ())
+    _walk(tree, (), out, paths)
     return out
+
+
+def _walk(t, prefix, out, paths):
+    """:func:`tree_leaves`' recursion (a module function: a nested one
+    that calls itself is a reference cycle, which would hold the leaves
+    until the garbage collector runs)."""
+    if isinstance(t, dict):
+        for k in sorted(t):
+            _walk(t[k], prefix + (str(k),), out, paths)
+    elif isinstance(t, tuple) and hasattr(t, "_fields"):
+        for name, v in zip(t._fields, t):
+            _walk(v, prefix + ("." + name,), out, paths)
+    elif isinstance(t, torch.Tensor):
+        out.append(("/".join(prefix), t) if paths else t)
 
 
 def tree_unflatten(structure, leaves: list):
@@ -137,8 +140,12 @@ def take_rows(w: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 def stack_layers(make_layer, steps: int):
     """Build a stacked segment from ``make_layer(idx)`` without holding
     more than one layer's temporaries: the first layer fixes the
-    structure, every layer is copied into preallocated stacked leaves."""
+    structure, every layer is copied into preallocated stacked leaves.
+    One step is a view of its layer (no copy: the layer is never held
+    twice)."""
     first = make_layer(0)
+    if steps == 1:
+        return tree_map(lambda t: t.unsqueeze(0), first)
     stacked = tree_map(
         lambda t: torch.empty((steps,) + tuple(t.shape), dtype=t.dtype, device=t.device),
         first,

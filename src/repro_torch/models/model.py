@@ -1,9 +1,9 @@
 """Model entry points: init, ``forward`` (train / prefill), the dense and
 the paged KV caches, the decode step (dense or paged), the chunked
 prefill step and the speculative verify step (port of the
-decoder parts of ``repro/models/model.py``): dense attention decoders
-and the RWKV6 ``ssm`` family, whose dense cache holds each layer's
-recurrent state instead of K / V.
+decoder parts of ``repro/models/model.py``): dense attention decoders,
+their MoE layers (the ``moe`` family) and the RWKV6 ``ssm`` family,
+whose dense cache holds each layer's recurrent state instead of K / V.
 
 The reference scans each segment of identical layers with ``lax.scan``
 (rematerialised per step in ``forward`` and per chunk in ``loss_fn``);
@@ -16,10 +16,11 @@ that skips the vocab head on non-final prefill chunks is a host ``if``.
 Caches are updated in place (the reference donates them).  The layer
 key chain is the reference's:
 ``fold_in(fold_in(rng, segment), layer)``.  Vision prefixes, encoders,
-Mamba, MoE and hybrid layers raise ``NotImplementedError``; the paged
-cache, chunked prefill and speculative verify take attention layers
-only, as the reference's.  :func:`loss_fn` (the trainer) takes attention
-layers only: RWKV6 layers serve but are not ported to training yet.
+Mamba and hybrid layers raise ``NotImplementedError``; the paged cache,
+chunked prefill and speculative verify take attention layers (with or
+without MoE) only, as the reference's.  :func:`loss_fn` (the trainer)
+takes attention layers with the MLP only: RWKV6 and MoE layers serve but
+are not ported to training yet.
 """
 from __future__ import annotations
 
@@ -203,9 +204,13 @@ def loss_fn(
     and the picked logit, and with ``remat`` is recomputed in the
     backward pass.  The sum over chunks and the count run in order from
     zero, then ``tot / max(cnt, 1)``.  Raises ``NotImplementedError`` for
-    RWKV6 layers (their gradients are not held against the reference's)."""
-    if any(cfg.layer_kind(i)[0] == "ssm" for i in range(cfg.n_layers)):
+    RWKV6 and MoE layers (their gradients are not held against the
+    reference's)."""
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    if any(kind == "ssm" for kind, _ in kinds):
         raise NotImplementedError("training ssm layers is not ported to repro_torch yet")
+    if any(has_moe for _, has_moe in kinds):
+        raise NotImplementedError("training MoE layers is not ported to repro_torch yet")
     x = forward(
         params, cfg, batch, policy=policy, rng=rng, mode="train",
         compute_dtype=compute_dtype, remat=remat, kernels=kernels,

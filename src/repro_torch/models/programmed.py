@@ -1,12 +1,13 @@
-"""Program-once weight-stationary inference (port of the attention- and
-RWKV6-layer parts of ``repro/models/programmed.py``).
+"""Program-once weight-stationary inference (port of the attention-,
+RWKV6- and MoE-layer parts of ``repro/models/programmed.py``).
 
 :func:`program_params` walks the model once, resolves each logical layer
 name through the ``MemPolicy`` and materialises the programmed state
 (``PreparedWeight`` for faithful layers, ``FoldedWeight`` for fast ones,
 ``None`` for digital ones) in a tree mirroring the params, stacked over
-layers like them.  Layer names and the key chain mirror
-:func:`repro_torch.models.model.decode_step`
+layers like them; an MoE layer's experts are one programmed stack per
+projection (:func:`repro_torch.models.moe.program_experts`).  Layer
+names and the key chain mirror :func:`repro_torch.models.model.decode_step`
 (``fold_in(fold_in(rng, segment), layer)`` then ``layer_key(·, name)``),
 so programming is a pure function of ``(params, cfg, policy, rng)``;
 programming runs on the params' device.
@@ -20,6 +21,7 @@ from repro_torch.core.prng import PRNGKey, fold_in
 from .common import layer_slice, stack_layers, tree_leaves
 from .config import ArchConfig
 from .model import segments
+from .moe import program_experts
 from .transformer import layer_kind
 
 __all__ = ["program_params", "programmed_byte_size"]
@@ -49,11 +51,25 @@ def _prog_layer(p: dict, cfg: ArchConfig, layer_idx: int, rng, policy, t_prog, k
         pk: _prog_dense(p[kind][pk], f"{name}.{suffix}", rng, policy, t_prog, kernels)
         for pk, suffix in _PROJ[kind]
     }
+    if "moe" in p:
+        return {kind: mixer, "moe": _prog_moe(p["moe"], name, rng, policy, t_prog, kernels)}
     mlp = {
         k: _prog_dense(p["mlp"][k], f"{name}.mlp.{k}", rng, policy, t_prog, kernels)
         for k in ("wi", "wg", "wo")
     }
     return {kind: mixer, "mlp": mlp}
+
+
+def _prog_moe(p: dict, name: str, rng, policy, t_prog, kernels):
+    """The router (``None`` where the policy keeps it digital) and, under a
+    hardware config for ``{name}.experts``, the three expert stacks with
+    the reference's per-expert keys."""
+    out = {"router": _prog_dense(p["router"], f"{name}.router", rng, policy, t_prog, kernels)}
+    cfg = policy.config_for(f"{name}.experts")
+    if cfg is not None and cfg.mode != "digital":
+        out["experts"] = program_experts(p["experts"], cfg, layer_key(rng, f"{name}.experts"),
+                                         t_prog, kernels)
+    return out
 
 
 def program_params(

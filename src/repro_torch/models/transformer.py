@@ -7,7 +7,9 @@ prefill and a speculative verify chunk against the paged pool.
 Two layer kinds are ported: the dense attention layer and the RWKV6
 time-mix layer of the ``ssm`` family (its recurrent state in place of
 K / V; chunked prefill and speculative verify refuse it, as the
-reference's do).  MoE, Mamba and hybrid layers raise
+reference's do).  An attention layer's FFN is the gated MLP or, in the
+``dense`` / ``moe`` families' MoE layers, the token-choice top-k MoE
+(:mod:`.moe`) on every block path.  Mamba and hybrid layers raise
 ``NotImplementedError``.  Layer names (``L.attn.*``, ``L.ssm.*``) and the
 per-layer key are the reference's, so programmed-state lookup and
 programming-noise keys agree with :mod:`.programmed`.
@@ -26,6 +28,7 @@ from .attention import (
     verify_attention_block,
 )
 from .common import activation, dense, make_dense_params, make_norm_params, norm, pget
+from .moe import init_moe_params, moe_block
 from .ssm import init_rwkv6_params, rwkv6_block, rwkv6_decode
 
 __all__ = ["init_block_params", "block_forward", "block_decode", "block_chunk", "block_verify",
@@ -34,10 +37,10 @@ __all__ = ["init_block_params", "block_forward", "block_decode", "block_chunk", 
 
 def layer_kind(cfg, layer_idx: int) -> str:
     """The ported kind of a layer, ``"attn"`` or ``"ssm"`` (RWKV6); raises
-    for the kinds not ported."""
-    kind, has_moe = cfg.layer_kind(layer_idx)
-    if cfg.family == "hybrid" or has_moe:
-        raise NotImplementedError("MoE and hybrid layers are not ported to repro_torch yet")
+    for the kinds not ported (hybrid groups, Mamba)."""
+    kind, _ = cfg.layer_kind(layer_idx)
+    if cfg.family == "hybrid":
+        raise NotImplementedError("hybrid layers are not ported to repro_torch yet")
     if kind == "ssm" and cfg.ssm.kind != "rwkv6":
         raise NotImplementedError(f"{cfg.ssm.kind} layers are not ported to repro_torch yet")
     return kind
@@ -53,27 +56,36 @@ def _attn_only(cfg, layer_idx: int, what: str) -> None:
 
 def init_block_params(key, cfg, layer_idx, dtype=torch.float32, device="cuda"):
     """Params of one layer (the reference's key tree: ``k1, k2 =
-    split(key)``, attention or the RWKV6 time-mix from ``k1``, the MLP
-    from ``split(k2, 3)``)."""
+    split(key)``, attention or the RWKV6 time-mix from ``k1``; from
+    ``k2`` the MoE of an MoE layer, else the MLP from ``split(k2, 3)``)."""
     kind = layer_kind(cfg, layer_idx)
     d = cfg.d_model
     k1, k2 = split(key)
-    ks = split(k2, 3)
     mixer = (init_attn_params(k1, cfg, dtype, device) if kind == "attn"
              else init_rwkv6_params(k1, cfg, dtype, device))
-    return {
+    p = {
         "norm1": make_norm_params(d, cfg.norm, dtype, device),
         "norm2": make_norm_params(d, cfg.norm, dtype, device),
         kind: mixer,
-        "mlp": {
-            "wi": make_dense_params(ks[0], d, cfg.d_ff, False, dtype, device),
-            "wg": make_dense_params(ks[1], d, cfg.d_ff, False, dtype, device),
-            "wo": make_dense_params(ks[2], cfg.d_ff, d, False, dtype, device),
-        },
     }
+    if cfg.layer_kind(layer_idx)[1]:
+        p["moe"] = init_moe_params(k2, cfg, dtype, device)
+        return p
+    ks = split(k2, 3)
+    p["mlp"] = {
+        "wi": make_dense_params(ks[0], d, cfg.d_ff, False, dtype, device),
+        "wg": make_dense_params(ks[1], d, cfg.d_ff, False, dtype, device),
+        "wo": make_dense_params(ks[2], cfg.d_ff, d, False, dtype, device),
+    }
+    return p
 
 
 def _ffn_forward(p, x, cfg, *, policy, rng, name, prepared=None, kernels=True):
+    """The layer's FFN on x (B, S, d): the MoE of an MoE layer, else the
+    gated MLP."""
+    if "moe" in p:
+        return moe_block(p["moe"], x, cfg, policy=policy, rng=rng, name=name,
+                         prepared=pget(prepared, "moe"), kernels=kernels)
     mlp = p["mlp"]
     prog = pget(prepared, "mlp")
     kw = dict(policy=policy, rng=rng, kernels=kernels)

@@ -660,3 +660,50 @@ def test_speculative_serveloop_equals_plain_on_card(card):
         for a, b in zip(want.results, got.results):
             assert a.tokens == b.tokens, (a.rid, a.tokens, b.tokens)
             assert all(np.array_equal(x, y) for x, y in zip(a.logits, b.logits)), a.rid
+
+
+@pytest.mark.parametrize("adc_mode,m,tile", [("dynamic", 32, 128), ("dynamic_row", 32, 64),
+                                             ("dynamic", 3, 32), ("fullscale", 200, 32)])
+def test_stacked_k1_equals_single_and_plain(card, adc_mode, m, tile):
+    """K1 over an expert stack, one launch: each expert bit-equal to K1 on
+    it alone and to the plain version, zero padding rows and an expert no
+    token was routed to included."""
+    import numpy as np
+
+    from repro_torch.models import moe
+
+    rng = np.random.default_rng(9)
+    cfg = DPEConfig(input_spec=INT8, weight_spec=INT8, array_size=(tile, tile),
+                    adc_mode=adc_mode, backend="auto")
+    e, k, n = 5, 2 * tile + 7, 3 * tile
+    w = torch.from_numpy(rng.standard_normal((e, k, n)).astype(np.float32)).to(card)
+    x = torch.from_numpy(rng.standard_normal((e, m, k)).astype(np.float32)).to(card)
+    x[2, 1:] = 0.0
+    x[3] = 0.0
+    prog = moe.program_experts({"wi": w, "wg": w, "wo": w}, cfg, PRNGKey(4))["wi"]
+    kw = dict(input_spec=cfg.input_spec, weight_spec=cfg.weight_spec,
+              array_size=cfg.array_size, rdac=cfg.rdac, radc=cfg.radc, adc_mode=adc_mode,
+              bm=128)
+    before = sm.stack_counter.count
+    got = ops.fused_sliced_matmul(x, prog.slices, prog.scale, **kw)
+    assert sm.stack_counter.count == before + 1
+    assert torch.equal(got, ops.fused_sliced_matmul(x, prog.slices, prog.scale,
+                                                          kernels=False, **kw))
+    for i in range(e):
+        assert torch.equal(got[i], ops.fused_sliced_matmul(x[i], prog.slices[i],
+                                                           prog.scale[i], **kw)), i
+
+
+def test_k1_workspace_past_free_memory_raises(card):
+    """A K1 call whose K-block partials (4 B x E x nk x M x Np) exceed the
+    card's free memory raises a clear error before it allocates, and the
+    next call that fits still runs."""
+    kw = dict(input_spec=INT8, weight_spec=INT8, array_size=(32, 32), rdac=256, radc=1024,
+              adc_mode="dynamic_row")
+    kp, np_, m = 32 * 64, 32 * 1024, 16384  # 64 K-blocks: 137 GB of partials
+    ws = torch.zeros((4, kp, np_), device=card)
+    sw = torch.ones((kp // 32, np_ // 32), device=card)
+    x = torch.zeros((m, kp), device=card)
+    with pytest.raises(RuntimeError, match="GiB of workspace"):
+        sm.fused_sliced_matmul_cuda(x, ws, sw, **kw)
+    assert not sm.fused_sliced_matmul_cuda(x[:2], ws, sw, **kw).any()

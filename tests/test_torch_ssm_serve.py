@@ -28,8 +28,8 @@ The port's own contracts (no reference involved):
 * rows where ``active`` is False keep ``s``, ``x_prev`` and ``pos`` bit
   for bit, and the active rows are the unmasked step's;
 * the ``ServeLoop``, ``init_paged_cache``, ``block_chunk`` and
-  ``block_verify`` refuse rwkv6 as the reference's do; Mamba, MoE and
-  hybrid layers are refused;
+  ``block_verify`` refuse rwkv6 as the reference's do; Mamba and hybrid
+  layers (a hybrid's MoE layers too) are refused;
 * the trainer (``loss_fn`` and ``python -m repro_torch.launch.train``)
   refuses rwkv6: its gradients are not ported yet.
 """
@@ -305,7 +305,9 @@ def test_recurrent_serving_refusals_match_reference(model):
 def test_unported_layer_kinds_raise(model):
     cfg, qcfg = model["cfg"], get_smoke("qwen2-0.5b")
     for bad in (cfg.replace(ssm=SSMConfig(kind="mamba")),
-                qcfg.replace(moe=MoEConfig(n_experts=4, top_k=2, d_expert=64)),
+                qcfg.replace(family="hybrid", hybrid_period=2, hybrid_attn_idx=(0,),
+                             hybrid_moe_idx=(1,), ssm=SSMConfig(kind="mamba"),
+                             moe=MoEConfig(n_experts=4, top_k=2, d_expert=64)),
                 qcfg.replace(family="hybrid", hybrid_period=2, hybrid_attn_idx=(0,),
                              ssm=SSMConfig(kind="mamba"))):
         with pytest.raises(NotImplementedError, match="not ported"):

@@ -126,10 +126,10 @@ def main() -> int:
                                  "dynamic_row", 128)
         fn = sm._entry("fused_sliced_matmul_launch")
         for _ in range(3):  # the last call's stamps are read
-            rc = fn(x.data_ptr(), k, m, k, pw.slices.data_ptr(), pw.scale.data_ptr(),
-                    part.data_ptr(), out.data_ptr(), tickets.data_ptr(), ts.data_ptr(), kp, np_,
-                    128, params[0], params[1], plan.ints_ptr,
-                    torch.cuda.current_stream().cuda_stream)
+            rc = fn(x.data_ptr(), k, m, k, 1, pw.slices.data_ptr(), pw.scale.data_ptr(),
+                    part.data_ptr(), out.data_ptr(), tickets.data_ptr(), plan.tickets,
+                    ts.data_ptr(), plan.scratch_floats, kp, np_, 128, params[0], params[1],
+                    plan.ints_ptr, 1.0, torch.cuda.current_stream().cuda_stream)
             if rc:
                 raise SystemExit(f"k1_phases: CUDA error {rc}")
             torch.cuda.synchronize()
