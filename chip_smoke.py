@@ -101,9 +101,24 @@ Phases (any failure exits non-zero; nothing is caught):
    profiled (init, programming, peak memory, TTFT, ITL, tok/s, idle
    share, K1 a decode step against its bound), K1 over the programmed
    expert stack in one launch bit-equal to K1 on every expert alone and,
-   on a sub-stack, to its plain version, then the launcher's default mode
-   (K1, the stacked K1 and K6 by the formula) and ``--requests 8 --slots
-   4 --gen 8``; ``--only moe`` runs this phase alone after the build;
+   on a sub-stack, to its plain version, a 3,072-token prompt at batch 4
+   whose stacked K1 calls (24.2 GB of K-block partials at ``wi``) run in
+   row groups, the grouped ``wi`` on 4 experts bit-equal to K1 on each
+   alone (TTFT, ITL, peak memory, the groups), then the launcher's default
+   mode (K1, the stacked K1 and K6 by the formula) and ``--requests 8
+   --slots 4 --gen 8``; ``--only moe`` runs this phase alone after the
+   build; then jamba-v0.1-52b (Mamba and attention in period groups,
+   ``jamba``): jamba-smoke, its MoE layers included, in the launcher's
+   default mode with the kernels bit-equal to their plain versions and
+   ``--requests`` refused; at full width one period of 8 layers with the
+   dense MLP in every layer (the published period's MoE layers need ~208
+   GB of slices) through the dense ``greedy_generate`` (K1 and K6 by the
+   formula; init, programming, TTFT, ITL, idle share, eager launches and
+   K1 a decode step against its bound), one 1,024-token prompt (K1's and
+   the selective scan's share of the prefill) and K1 at each distinct
+   projection shape of the path (Mamba, attention, MLP, head) on its
+   programmed state bit-equal to its plain version; ``--only jamba`` runs this
+   phase alone after the build;
 5. the trainer (``train``): ``repro_torch.launch.train.main`` at
    qwen2-0.5b's full width and depth under ``make_policy
    ("mem_faithful")``, batch 8 x 128 tokens, loss chunks of 64, remat
@@ -1427,13 +1442,6 @@ def moe_step_bound(cfg, batch: int, calls, padded: bool = False):
     return experts + rest, experts, rest
 
 
-def sm_workspace_floats() -> int:
-    """Floats of K1's workspace now held (freed when a call needs more)."""
-    from repro_torch.kernels import sliced_matmul as sm
-
-    return sum(f.numel() for _, f in sm._workspace.values())
-
-
 def stack_calls(fn) -> list:
     """Run ``fn()`` with K1's calls on expert stacks recorded, in order:
     (experts with a routed row, routed rows, E, M, K, N) of each.  Each
@@ -1544,6 +1552,83 @@ def check_stack(timer, prog_experts, cfg, card, summary):
                                     bound_ms_padded=pb))
 
 
+MOE_LONG = 3072  # a prompt whose stacked K1 partials (24.2 GB at wi) exceed what is free
+MOE_LONG_NEW = 4
+
+
+def moe_long_prompt(params, prog, cfg, pol, card):
+    """A ``MOE_LONG``-token prompt at batch 4 through the dense path's
+    prefill and decode steps (``MOE_LONG_NEW`` new tokens) beside the
+    programmed layer: the stacked K1's K-block partials of 4 B x E x nk x
+    M x N (960 buffer rows an expert) do not fit what is free, so its
+    calls run in row groups of whole 128-row ``dynamic`` tiles
+    (``kernels/sliced_matmul.py::row_groups``).  Prints TTFT, peak memory
+    and the groups; holds the prefill's stacked ``wi`` call on
+    ``MOE_SUB``'s experts against K1 on each of them alone, bit for bit."""
+    from repro_torch.core.prng import PRNGKey, randint
+    from repro_torch.kernels import sliced_matmul as sm
+    from repro_torch.serve.engine import make_decode_step, make_prefill_step
+
+    seen, inner = [], sm.fused_sliced_matmul_cuda
+    idx = torch.tensor(MOE_SUB, device="cuda")
+
+    def record(x, ws, sw, **kw):
+        before = sm.stack_counter.count
+        out = inner(x, ws, sw, **kw)
+        if x.dim() == 3:
+            if not seen:  # the prefill's wi: MOE_SUB's experts, kept for the check
+                seen.append((x[idx].clone(), ws[idx], sw[idx], out[idx].clone(), kw))
+            seen.append((tuple(x.shape), sm.stack_counter.count - before))  # one launch a group
+        return out
+
+    prompts = randint(PRNGKey(3), (4, MOE_LONG), 0, cfg.vocab, device="cuda")
+    prefill = make_prefill_step(cfg, pol, max_len=MOE_LONG + MOE_LONG_NEW + 1,
+                                compute_dtype=torch.float32, cache_dtype=torch.float32)
+    decode = make_decode_step(cfg, pol, compute_dtype=torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    sm.fused_sliced_matmul_cuda = record
+    try:
+        t0 = time.monotonic()
+        logits, cache = prefill(params, {"tokens": prompts}, prog)
+        toks = [torch.argmax(logits, dim=-1)]
+        torch.cuda.synchronize()
+        ttft = time.monotonic() - t0
+        for _ in range(MOE_LONG_NEW):
+            logits, cache = decode(params, cache, toks[-1], prog)
+            toks.append(torch.argmax(logits, dim=-1))
+        torch.cuda.synchronize()
+        itl = (time.monotonic() - t0 - ttft) / MOE_LONG_NEW
+    finally:
+        sm.fused_sliced_matmul_cuda = inner
+    out = torch.stack(toks, dim=1)
+    del cache, logits
+    if out.shape != (4, MOE_LONG_NEW + 1) or not bool(((out >= 0) & (out < cfg.vocab)).all()):
+        raise AssertionError(f"{MOE_ARCH} {MOE_LONG}-token prompt: tokens {out}")
+    x, ws, sw, y, kw = seen[0]
+    stacked = seen[1:4]  # the prefill's wi, wg, wo
+    groups = [g for _, g in stacked]
+    print(f"{MOE_ARCH} {MOE_LONG}-token prompt, batch 4, mem_faithful, {MOE_LONG_NEW} new: TTFT "
+          f"{ttft * 1e3:.1f} ms, ITL {itl * 1e3:.1f} ms; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; the prefill's "
+          f"stacked K1 calls (wi/wg/wo, {stacked[0][0][0]} experts x {stacked[0][0][1]} buffer "
+          f"rows) in {'/'.join(map(str, groups))} row groups; tokens "
+          f"{out[0].tolist()}  [{card}]")
+    if groups[0] < 2:
+        raise AssertionError(f"{MOE_ARCH} {MOE_LONG}-token prompt: the stacked wi ran in one "
+                             "group; the check needs a call past the free memory's half")
+    for i, e in enumerate(MOE_SUB):
+        alone = inner(x[i], ws[i], sw[i], **kw)
+        if not torch.equal(alone, y[i]):
+            raise AssertionError(f"{MOE_ARCH} {MOE_LONG}-token prompt: the grouped stacked wi's "
+                                 f"expert {e} differs from K1 on it alone by "
+                                 f"{float((alone - y[i]).abs().max())}")
+    print(f"  the grouped stacked wi call ({x.shape[1]} rows an expert): experts {MOE_SUB} "
+          "bit-equal to K1 on each alone")
+    del seen, x, ws, sw, y, out
+    sm._workspace.clear()  # the kept workspace of the prompt's calls: freed for the phases after
+    torch.cuda.empty_cache()
+
+
 def moe(timer, card, counters, summary, floor):
     """qwen3-moe-235b-a22b, its token-choice top-8 MoE over 128 experts:
     at qwen3-moe-smoke widths the launcher's default mode and ``--requests``
@@ -1554,8 +1639,10 @@ def moe(timer, card, counters, summary, floor):
     ("mem_faithful")``: the dense ``greedy_generate`` (batch 4, prompt 16,
     16 new) timed and profiled (init, programming, bytes, peak memory,
     TTFT, ITL, tok/s, idle share, K1 device ms a decode step against its
-    bound), the stacked K1 on the programmed expert stacks against the
-    single K1 and the plain version (``check_stack``), then the
+    bound), a ``MOE_LONG``-token prompt whose stacked K1 runs in row
+    groups (``moe_long_prompt``), the stacked K1 on the programmed expert
+    stacks against the single K1 and the plain version (``check_stack``),
+    then the
     launcher's default mode (K1 5 x 17, the stacked K1 3 x 17, K6 by the
     formula) and ``--requests 8 --slots 4 --gen 8`` (K1, the stacked K1,
     K2, K3 launched, every request finished)."""
@@ -1566,7 +1653,6 @@ def moe(timer, card, counters, summary, floor):
     from repro_torch.launch.dryrun import make_policy
     from repro_torch.models import init_params, program_params, programmed_byte_size
     from repro_torch.models.common import tree_leaves
-    from repro_torch.models.moe import moe_capacity
     from repro_torch.serve import greedy_generate
 
     cfg = get(MOE_ARCH).replace(n_layers=1)
@@ -1664,18 +1750,7 @@ def moe(timer, card, counters, summary, floor):
     else:
         print(f"  K1 a decode step: not measured; its bound {b_all:.3f} ms (every buffer row: "
               f"{p_all:.3f} ms)")
-    # the stacked K1's workspace beside the programmed layer: K-block
-    # partials of 4 B x E x nk x M x N a call (kernels/sliced_matmul.py)
-    e_, tile = cfg.moe.n_experts, pol.default.array_size[0]
-    per_row = max(4 * e_ * (k // tile) * n for k, n in
-                  ((cfg.d_model, cfg.moe.d_expert), (cfg.moe.d_expert, cfg.d_model)))
-    free = (torch.cuda.mem_get_info()[0] + torch.cuda.memory_reserved()
-            - torch.cuda.memory_allocated() + 4 * sm_workspace_floats())
-    cap_max = free // per_row // 4
-    s_max = next(s for s in range(1, 1 << 20) if moe_capacity(cfg.moe, s + 1) > cap_max)
-    print(f"  stacked K1 workspace: {per_row / 1e6:.2f} MB a buffer row; {free / 2**30:.2f} GiB "
-          f"free beside the programmed layer holds {cap_max} rows an expert at batch 4: "
-          f"prompts up to {s_max} tokens in one prefill  [{card}]")
+    moe_long_prompt(params, prog, cfg, pol, card)
     check_stack(timer, prog["blocks"]["seg0"]["moe"]["experts"], cfg, card, summary)
     del params, prog, out
     torch.cuda.empty_cache()
@@ -1714,6 +1789,282 @@ def moe(timer, card, counters, summary, floor):
     for name, n in launched.items():
         counters[name] = counters.get(name, 0) + n
     del rep
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the hybrid jamba-v0.1-52b: Mamba and attention in period groups
+# ---------------------------------------------------------------------------
+
+JAMBA_ARCH = "jamba-v0.1-52b"
+JAMBA_SMOKE = ["--arch", JAMBA_ARCH, "--smoke", "--policy", "mem_faithful", "--batch", "2",
+               "--prompt_len", "8", "--gen", "2"]
+JAMBA_PROFILED = 4  # decode steps of the profiled generation
+JAMBA_LONG = 1024  # one long faithful prompt at batch 1
+JAMBA_LONG_NEW = 8
+K1_CHECK_64 = 40_000_000  # weights up to which (d) also checks M = 64 (the plain K1 ~0.11 s/M)
+
+
+def jamba_full(cfg):
+    """The full-width period one H100 holds: one period of 8 layers (the
+    reference asserts whole periods) with jamba's dense MLP in every layer
+    (``hybrid_moe_idx=()``): the published period's four MoE layers of 16
+    experts take ~208 GB of faithful slices."""
+    return cfg.replace(n_layers=cfg.hybrid_period, hybrid_moe_idx=())
+
+
+def jamba_shapes(cfg) -> list:
+    """(K, N) of every single-weight K1 call of one forward: per period
+    the Mamba projections (in, z, x, dt, out) of its Mamba layers, the
+    attention's q / k / v / o, the MLP of its non-MoE layers; the head."""
+    from repro_torch.models.ssm import _mamba_dims
+
+    d, ff = cfg.d_model, cfg.d_ff
+    d_in, r, n, _ = _mamba_dims(cfg)
+    qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    shapes = []
+    for i in range(cfg.n_layers):
+        kind, moe = cfg.layer_kind(i)
+        shapes += ([(d, qd), (d, kvd), (d, kvd), (qd, d)] if kind == "attn" else
+                   [(d, d_in), (d, d_in), (d_in, r + 2 * n), (r, d_in), (d_in, d)])
+        shapes += [] if moe else [(d, ff), (d, ff), (ff, d)]
+    return shapes + [(d, cfg.vocab)]
+
+
+def jamba_step_bound(cfg, batch: int):
+    """K1's bound for one decode step of ``batch`` rows: each call bound by
+    its slices (16 B a weight), input and output, or by its 32 operations a
+    row-weight.  Returns (ms, GB of slices)."""
+    shapes = jamba_shapes(cfg)
+    ms = sum(bound_ms(16 * k * n + 4 * batch * (k + n), 32 * batch * k * n)[0]
+             for k, n in shapes)
+    return ms, 16 * sum(k * n for k, n in shapes) / 1e9
+
+
+def jamba(timer, card, counters):
+    """jamba-v0.1-52b's hybrid period through ``repro_torch.launch.serve``
+    and the dense ``greedy_generate``: (a) jamba-smoke, its MoE layers
+    included, in the launcher's default mode under ``mem_faithful`` with
+    the kernels against ``--kernels off`` (tokens and every logit row
+    bit-equal; K1 and the stacked K1 by the formula) and ``--requests``
+    refused; (b) at full width, one period with the dense MLP
+    (:func:`jamba_full`), batch 4, prompt 16, 16 new: init, programming,
+    peak memory, TTFT, ITL, tok/s, the idle share of the prefill and
+    ``JAMBA_PROFILED`` decode steps, eager launches a step, K1 a decode
+    step against its bound (K1 and K6 by the formula); (c) one
+    ``JAMBA_LONG``-token faithful prompt at batch 1: the prefill, and K1's
+    and the selective scan's share of it; (d) K1 at each distinct (K, N)
+    of the path (:func:`jamba_shapes`) on the programmed state of one
+    projection of that shape, M = 4 (and 64 up to ``K1_CHECK_64``
+    weights: the Mamba and attention projections), bit-equal to its
+    plain version."""
+    from repro_torch.configs import get, get_smoke
+    from repro_torch.core.layers import mem_linear
+    from repro_torch.core.prng import PRNGKey, randint
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sliced_matmul as sm
+    from repro_torch.launch import serve as launcher
+    from repro_torch.launch.dryrun import make_policy
+    from repro_torch.models import init_params, program_params, programmed_byte_size, ssm
+    from repro_torch.models.common import layer_slice, tree_leaves
+    from repro_torch.serve import greedy_generate
+    from repro_torch.serve.engine import make_decode_step, make_prefill_step
+
+    # (a) jamba-smoke, kernels against plain, in the launcher's default mode
+    t0 = time.monotonic()
+    scfg = get_smoke(JAMBA_ARCH)
+    ops.reset_counters()
+    on = launcher.main(JAMBA_SMOKE + ["--kernels", "on"], collect_logits=True)
+    n_k1, n_st = (ops.COUNTERS[k].count for k in ("fused_sliced_matmul",
+                                                   "fused_sliced_matmul_stack"))
+    off = launcher.main(JAMBA_SMOKE + ["--kernels", "off"], collect_logits=True)
+    fwd = 2 + 1  # the prefill and 2 decode steps
+    n_moe = sum(scfg.layer_kind(i)[1] for i in range(scfg.n_layers))
+    if (n_k1 != len(jamba_shapes(scfg)) * fwd or n_st != 3 * n_moe * fwd
+            or ops.COUNTERS["fused_sliced_matmul"].count != n_k1
+            or ops.COUNTERS["fused_sliced_matmul_stack"].count != n_st):
+        raise AssertionError(f"jamba-smoke: K1 {n_k1}, stacked K1 {n_st} launches (expected "
+                             f"{len(jamba_shapes(scfg)) * fwd}, {3 * n_moe * fwd}; --kernels "
+                             "off launches none)")
+    if not (torch.equal(on[0], off[0]) and torch.equal(on[1], off[1])):
+        raise AssertionError(f"jamba-smoke: kernels {on[0].tolist()} against plain "
+                             f"{off[0].tolist()}")
+    try:
+        launcher.main(JAMBA_SMOKE + ["--requests", "2"])
+    except NotImplementedError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("jamba-smoke: --requests did not refuse a hybrid")
+    print(f"jamba-smoke (mem_faithful, its {n_moe} MoE layers included) in the launcher's "
+          f"default mode: tokens and {on[1].shape[0] * on[1].shape[1]} logit rows bit-equal to "
+          f"--kernels off; K1 {n_k1}, stacked K1 {n_st} launches; --requests refused "
+          f"({refused!r}); {time.monotonic() - t0:.1f} s  [{card}]")
+    del on, off
+
+    # (b) full width: one period with the dense MLP
+    cfg = jamba_full(get(JAMBA_ARCH))
+    print(f"{JAMBA_ARCH} at full width (d_model {cfg.d_model}, {cfg.n_heads} heads over "
+          f"{cfg.n_kv_heads} KV heads, d_ff {cfg.d_ff}, Mamba d_inner "
+          f"{ssm._mamba_dims(cfg)[0]}, vocab {cfg.vocab}), cut: {cfg.n_layers} of 32 layers (one "
+          "period; the reference takes whole periods) and the dense MLP in place of the 16 "
+          "experts of the period's 4 MoE layers (hybrid_moe_idx=(): the published period's "
+          "~208 GB of faithful slices exceed one H100)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = init_params(cfg, PRNGKey(0), device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.monotonic() - t0
+    pol = make_policy("mem_faithful")
+    shapes = jamba_shapes(cfg)
+    ops.reset_counters()
+    t0 = time.monotonic()
+    prog = program_params(params, cfg, pol, PRNGKey(0))
+    torch.cuda.synchronize()
+    t_prog = time.monotonic() - t0
+    launched = path_launches()  # programming: K6 once a slice plane of every weight
+    prompts = randint(PRNGKey(1), (4, 16), 0, cfg.vocab, device="cuda")
+
+    def generate(n):
+        return greedy_generate(params, cfg, prompts, n, policy=pol,
+                               compute_dtype=torch.float32, programmed=prog)
+
+    generate(1)  # warm-up
+    wall = {}
+    for n in (0, JAMBA_PROFILED, 16):
+        if n == 16:  # the main path's run: its launches are counted
+            ops.reset_counters()
+        t0 = time.monotonic()
+        out = generate(n)
+        torch.cuda.synchronize()
+        wall[n] = time.monotonic() - t0
+    for name, n in path_launches().items():
+        launched[name] += n
+    k6 = len(shapes) * pol.default.weight_spec.n_slices
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"{JAMBA_ARCH} (one period): init {n_params / 1e6:.1f} M params in {t_init:.2f} s; "
+          f"programmed {programmed_byte_size(prog) / 1e6:.1f} MB of crossbar state in "
+          f"{t_prog:.2f} s; launches of the programming and the generation {launched} "
+          f"(expected K1 {len(shapes)} x 17, K6 {k6})  [{card}]")
+    if (launched["fused_sliced_matmul"] != len(shapes) * 17 or launched["program_noise"] != k6
+            or launched["fused_sliced_matmul_stack"] or launched["paged_decode_attention"]
+            or launched["paged_chunk_attention"]):
+        raise AssertionError(f"{JAMBA_ARCH}: launches {launched}")
+    if out.shape != (4, 17) or not bool(((out >= 0) & (out < cfg.vocab)).all()):
+        raise AssertionError(f"{JAMBA_ARCH}: tokens {out}")
+    for name, n in launched.items():
+        counters[name] = counters.get(name, 0) + n
+    pre, whole = wall[0], wall[16]
+    print(f"{JAMBA_ARCH} dense greedy_generate, mem_faithful (dynamic ADC), batch 4, prompt 16: "
+          f"TTFT {pre * 1e3:.1f} ms, 16 new tokens in {whole * 1e3:.1f} ms: "
+          f"{4 * 16 / whole:.2f} tok/s, ITL {(whole - pre) / 16 * 1e3:.1f} ms; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+    g_pre = device_groups(lambda: generate(0))
+    g_all = device_groups(lambda: generate(JAMBA_PROFILED))
+    print_busy(f"{JAMBA_ARCH}'s generation (the prefill and {JAMBA_PROFILED} decode steps)",
+               g_all, wall[JAMBA_PROFILED] * 1e3, card,
+               k1_calls=len(shapes) * (JAMBA_PROFILED + 1))
+    b_step, gb = jamba_step_bound(cfg, 4)
+    if g_pre and g_all:
+        k1_pre, n_pre = g_pre.get("K1", (0.0, 0))[0], sum(n for _, n in g_pre.values())
+        k1 = (g_all.get("K1", (0.0, 0))[0] - k1_pre) / JAMBA_PROFILED
+        n_step = (sum(n for _, n in g_all.values()) - n_pre) / JAMBA_PROFILED
+        print(f"  the prefill: K1 {k1_pre:.3f} ms device, {n_pre} launches; a decode step: K1 "
+              f"{k1:.3f} ms device against its bound {b_step:.3f} ms ({gb:.2f} GB of slices, "
+              f"bytes), {b_step / k1:.1%} of it; {n_step:.0f} launches  [{card}]")
+    else:
+        print(f"  K1 a decode step: not measured; its bound {b_step:.3f} ms ({gb:.2f} GB)")
+
+    # (c) one long faithful prompt: the prefill, K1's and the scan's share
+    scan_inner, k1_inner = ssm._selective_scan, sm.fused_sliced_matmul_cuda
+    spans = {"scan": [], "K1": []}
+    first_scan = []
+
+    def timed_call(label, fn):
+        def call(*a, **kw):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*a, **kw)
+            e.record()
+            spans[label].append((s, e))
+            if label == "scan" and not first_scan:
+                first_scan.append(tuple(t.clone() for t in a))
+            return out
+        return call
+
+    long_prompt = randint(PRNGKey(2), (1, JAMBA_LONG), 0, cfg.vocab, device="cuda")
+    prefill = make_prefill_step(cfg, pol, compute_dtype=torch.float32, cache_dtype=torch.float32)
+    decode = make_decode_step(cfg, pol, compute_dtype=torch.float32)
+    ssm._selective_scan = timed_call("scan", scan_inner)
+    sm.fused_sliced_matmul_cuda = timed_call("K1", k1_inner)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        logits, cache = prefill(params, {"tokens": long_prompt}, prog)
+        torch.cuda.synchronize()
+        t_pre = time.monotonic() - t0
+    finally:
+        ssm._selective_scan, sm.fused_sliced_matmul_cuda = scan_inner, k1_inner
+    k1_ms = sum(s.elapsed_time(e) for s, e in spans["K1"])
+    scan_ms = sum(s.elapsed_time(e) for s, e in spans["scan"])
+    toks = [torch.argmax(logits, dim=-1)]
+    t0 = time.monotonic()
+    for _ in range(JAMBA_LONG_NEW):
+        logits, cache = decode(params, cache, toks[-1], prog)
+        toks.append(torch.argmax(logits, dim=-1))
+    torch.cuda.synchronize()
+    itl = (time.monotonic() - t0) / JAMBA_LONG_NEW
+    scan_groups = device_groups(lambda: scan_inner(*first_scan[0]))
+    n_scan = sum(n for _, n in scan_groups.values())
+    # every projection on the prompt's rows, the head on its last
+    b_pre = sum(bound_ms(16 * k * n + 4 * rows * (k + n), 32 * rows * k * n)[0]
+                for (k, n), rows in zip(shapes, [JAMBA_LONG] * (len(shapes) - 1) + [1]))
+    print(f"{JAMBA_ARCH} {JAMBA_LONG}-token prompt, batch 1, mem_faithful, {JAMBA_LONG_NEW} "
+          f"new: prefill {t_pre * 1e3:.1f} ms, of it K1 {k1_ms:.1f} ms device in "
+          f"{len(spans['K1'])} calls ({k1_ms / (t_pre * 1e3):.1%}; bound {b_pre:.1f} ms, "
+          f"operations) and the selective scan {scan_ms:.1f} ms on the card's clock over "
+          f"{len(spans['scan'])} calls ({scan_ms / (t_pre * 1e3):.1%}; {n_scan} launches a "
+          f"call); ITL {itl * 1e3:.1f} ms; tokens {torch.stack(toks, 1)[0].tolist()}  [{card}]")
+    if not bool(torch.isfinite(logits).all()) or len(spans["scan"]) != 7:
+        raise AssertionError(f"{JAMBA_ARCH} long prompt: non-finite logits or "
+                             f"{len(spans['scan'])} scans")
+    del cache, logits, first_scan, spans
+
+    # (d) K1 at each projection shape of the path, on its programmed state, against plain
+    dcfg = pol.default
+    seg_p, seg_q = (layer_slice(t["blocks"]["seg0"], 0) for t in (params, prog))
+    sites = {}  # (K, N) -> one projection of that shape: (name, params, programmed)
+    for j in range(cfg.hybrid_period):
+        for sub, q_sub in seg_q[f"l{j}"].items():
+            for pk, q in q_sub.items():
+                p = seg_p[f"l{j}"][sub][pk]
+                sites.setdefault(tuple(p["w"].shape), (f"l{j}.{sub}.{pk}", p, q))
+    sites.setdefault(tuple(params["lm_head"]["w"].shape),
+                     ("lm_head", params["lm_head"], prog["lm_head"]))
+    if set(sites) != set(shapes):
+        raise AssertionError(f"{JAMBA_ARCH}: checked shapes {sorted(sites)} against the "
+                             f"path's {sorted(set(shapes))}")
+    g = torch.Generator(device="cuda").manual_seed(31)
+    for (k, n), (name, p, q) in sites.items():
+        for m in (4, 64) if k * n <= K1_CHECK_64 else (4,):
+            x = torch.randn((m, k), generator=g, device="cuda")
+            run = lambda kernels: mem_linear(x, p["w"], p.get("b"), dcfg, None,  # noqa: E731
+                                             prepared=q, kernels=kernels)
+            y = run(True)
+            t1 = time.monotonic()
+            yp = run(False)
+            torch.cuda.synchronize()
+            t_plain = (time.monotonic() - t1) * 1e3
+            if not torch.equal(y, yp):
+                raise AssertionError(f"{JAMBA_ARCH} K1 at {name} M={m}: differs from the plain "
+                                     f"version by {float((y - yp).abs().max())}")
+            ms = timer(lambda: run(True))
+            b, by = bound_ms(16 * k * n + 4 * m * (k + n), 32 * m * k * n)
+            extra = ", bias" if p.get("b") is not None else ""
+            print(f"K1 at jamba's {name} ({k} x {n}{extra}, {-(-k // 128)} K-blocks), M = {m}: "
+                  f"bit-equal to the plain version; {ms:.3f} ms (bound {b:.3f} ms, {by}), plain "
+                  f"{t_plain:.1f} ms  [{card}]")
+    del params, prog
     torch.cuda.empty_cache()
 
 
@@ -2591,7 +2942,7 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(prog="chip_smoke.py")
-    ap.add_argument("--only", choices=("train", "rwkv6", "moe"), default=None,
+    ap.add_argument("--only", choices=("train", "rwkv6", "moe", "jamba"), default=None,
                     help="build the kernels and run this phase alone (no kernels line, no "
                          "final line)")
     args = ap.parse_args(argv)
@@ -2647,6 +2998,9 @@ def main(argv=None) -> int:
     if args.only == "moe":
         timed("moe", moe, timer, card, counters, summary, floor)
         return 0
+    if args.only == "jamba":
+        timed("jamba", jamba, timer, card, counters)
+        return 0
     timed("check_k1", check_k1, timer, qcfg, summary)
     timed("check_k1_tiles", check_k1_tiles, timer, summary, card)
     timed("check_k2_k3", check_k2_k3, timer, qcfg, summary, card, floor)
@@ -2668,6 +3022,8 @@ def main(argv=None) -> int:
     timed("rwkv6", rwkv6, card, counters)
     torch.cuda.empty_cache()
     timed("moe", moe, timer, card, counters, summary, floor)
+    torch.cuda.empty_cache()
+    timed("jamba", jamba, timer, card, counters)
     train_phases(timed, timer, qcfg, card, counters)
     counters["sliced_matmul"] = summary["sliced_matmul"]["launches"]
     counters["flash_attention"] = summary["flash_attention"]["launches"]

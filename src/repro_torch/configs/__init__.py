@@ -3,19 +3,19 @@
 Each module defines ``CONFIG`` (the published configuration) and
 ``SMOKE`` (a reduced same-family config for CPU tests).  Ported: the two
 dense decoders (qwen2-0.5b, h2o-danube-1.8b), the RWKV6 ``ssm`` model
-(rwkv6-1.6b) and the two all-attention MoE models (qwen3-moe-235b-a22b,
-kimi-k2-1t-a32b); the reference registry (``repro.configs``) lists the
-others.
+(rwkv6-1.6b), the two all-attention MoE models (qwen3-moe-235b-a22b,
+kimi-k2-1t-a32b) and the hybrid Mamba / attention / MoE jamba-v0.1-52b;
+the reference registry (``repro.configs``) lists the others.
 """
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ("h2o_danube_1p8b", "kimi_k2_1t_a32b", "qwen2_0p5b", "qwen3_moe_235b_a22b",
-            "rwkv6_1p6b")
-ALIASES = {"h2o-danube-1.8b": "h2o_danube_1p8b", "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
-           "qwen2-0.5b": "qwen2_0p5b", "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
-           "rwkv6-1.6b": "rwkv6_1p6b"}
+ARCH_IDS = ("h2o_danube_1p8b", "jamba_v0p1_52b", "kimi_k2_1t_a32b", "qwen2_0p5b",
+            "qwen3_moe_235b_a22b", "rwkv6_1p6b")
+ALIASES = {"h2o-danube-1.8b": "h2o_danube_1p8b", "jamba-v0.1-52b": "jamba_v0p1_52b",
+           "kimi-k2-1t-a32b": "kimi_k2_1t_a32b", "qwen2-0.5b": "qwen2_0p5b",
+           "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b", "rwkv6-1.6b": "rwkv6_1p6b"}
 
 
 def _module(name: str):

@@ -50,6 +50,18 @@ FMAs: noisy slices are not integers, so a bf16/TF32 tensor-core dot
 would not be exact.  Each CTA is a chain of latencies (TMA arrival,
 chains, the tile's epilogue) and shared memory caps the CTAs in flight,
 which is what keeps the kernel from its bounds (PERF.md).
+
+A call's K-block partials take 4 B x E x nk x M x Np of device memory
+(nk times its output), kept for the next call.  A call whose partials
+would take more than half of the memory a new buffer can take runs as
+consecutive row groups (:func:`row_groups`), each one launch on its rows
+with a workspace of the call's own, which goes back to the card when the
+call ends (one cache flush a grouped call; the kept one stays as it is):
+a group holds whole ``bm``-row ``dynamic`` tiles (``dynamic_row`` and
+``fullscale`` split anywhere), so every ADC range and every row's
+in-order K-block sum are the ones of the whole call and the bits do not
+change.  A ``dynamic`` call with ``bm >= M`` is one range and is never
+split: past the free memory it raises.
 """
 from __future__ import annotations
 
@@ -69,6 +81,7 @@ from .ref import sliced_matmul_ref
 __all__ = [
     "K1Plan",
     "plan_k1",
+    "row_groups",
     "fused_sliced_matmul_ref",
     "fused_sliced_matmul_cuda",
     "staged_sliced_matmul_cuda",
@@ -420,40 +433,92 @@ def _check_weights(who, ws, sw, input_spec, weight_spec, array_size, adc_mode, t
 # another: K-block tickets (zero between calls: the kernel's last CTA of
 # an output block resets its ticket) and float scratch for the K-block
 # partials and the decode pairs (rewritten by every call).  It grows to
-# the largest call and is kept: the K-block partials of a call are
+# the largest call not split in row groups and is kept: the K-block
+# partials of a call are
 # 4 B x E x nk x M x Np (E experts of a stack, nk K-blocks), which is
 # nk times the call's output.
 _workspace: dict = {}
 
 
-def _buffers(device, stream: int, n_tickets: int, n_floats: int, shape=()):
-    """The workspace's (tickets, floats) addresses, grown to the call's
-    ``n_tickets`` and ``n_floats``; raises before it allocates past the
-    card's free memory (``shape``: the call's (E, nk, M, Np) for the
+def _free_bytes(device) -> int:
+    """Device memory one new buffer can take: what the card has free and
+    the caching allocator's wholly unused segments, which it gives back to
+    the card when an allocation needs them.  The free space inside
+    part-used segments is left out: it cannot take one large buffer."""
+    s = torch.cuda.memory_stats(device)
+    unused = (s.get("reserved_bytes.all.current", 0) - s.get("allocated_bytes.all.current", 0)
+              - s.get("inactive_split_bytes.all.current", 0))
+    return torch.cuda.mem_get_info(device)[0] + max(unused, 0)
+
+
+def _buffers(device, stream: int, n_tickets: int, n_floats: int, shape=(), keep=True):
+    """The workspace's (tickets, floats) tensors, grown to the call's
+    ``n_tickets`` and ``n_floats``; with ``keep=False`` floats the kept
+    buffer cannot take are the call's own (a row group's), and the kept
+    buffer stays as it is.  Raises before it allocates past the memory a
+    new buffer can take (``shape``: the call's (E, nk, M, Np) for the
     message)."""
     key = (device, stream)
-    tickets, floats = _workspace.pop(key, (None, None))
+    tickets, held = _workspace.pop(key, (None, None))
     if tickets is None or tickets.numel() < n_tickets:
         tickets = torch.zeros(max(n_tickets, 1 << 16), dtype=torch.int32, device=device)
-    if floats is None or floats.numel() < n_floats:
-        floats = None  # the old buffer is freed before the new one is taken
-        n_floats = max(n_floats, 1 << 20)
-        free = (torch.cuda.mem_get_info(device)[0] + torch.cuda.memory_reserved(device)
-                - torch.cuda.memory_allocated(device))
+    floats = held if held is not None and held.numel() >= n_floats else None
+    if floats is None:
+        if keep:
+            held = None  # the old buffer is freed before the new one is taken
+            n_floats = max(n_floats, 1 << 20)
+        free = _free_bytes(device)
         if 4 * n_floats > free:
-            _workspace[key] = (tickets, torch.empty(0, device=device))
+            _workspace[key] = (tickets, held)
             raise RuntimeError(
                 f"K1 needs {4 * n_floats / 2**30:.2f} GiB of workspace (K-block partials of "
                 f"4 B x E x nk x M x Np = {' x '.join(map(str, shape))}, and scratch) and the "
                 f"card has {free / 2**30:.2f} GiB free: call it on fewer rows")
         floats = torch.empty(n_floats, dtype=torch.float32, device=device)
-    _workspace[key] = (tickets, floats)
-    return tickets.data_ptr(), floats.data_ptr()
+        if keep:
+            held = floats
+    _workspace[key] = (tickets, held)
+    return tickets, floats
 
 
-def _launch(name, lead, m, ws, sw, kp, np_, tile, plan, params, device, tail=(), experts=1):
+GROUP_SHARE = 0.5  # of the memory a new buffer can take that a call's workspace may
+
+
+def row_groups(m: int, unit: int, row_bytes: int, budget: int) -> list[tuple[int, int]] | None:
+    """Consecutive ``(start, stop)`` row ranges covering a call of ``m``
+    rows that needs ``row_bytes`` of workspace a row: the whole call when
+    it fits ``budget``, else ranges of as many whole ``unit``-row units as
+    fit (the last range takes the rest).  ``None`` when not even one unit
+    fits: the call cannot be split within the budget."""
+    if m * row_bytes <= budget:
+        return [(0, m)]
+    rows = budget // max(row_bytes, 1) // unit * unit
+    if rows == 0:
+        return None
+    return [(r, min(r + rows, m)) for r in range(0, m, rows)]
+
+
+def _groups(device, e, m, k, nk, np_, unit):
+    """The row groups of a K1 call on ``device``'s current stream: the
+    whole call where the kept workspace takes its partials, or where they
+    take at most ``GROUP_SHARE`` of the memory a new buffer can take
+    (:func:`_free_bytes`); else groups whose partials, input copy and
+    output do; whole where not one group fits (:func:`_buffers` then
+    raises past the free memory)."""
+    part = 4 * e * nk * np_ if nk > 1 else 0
+    stream = torch.cuda.current_stream(device).cuda_stream
+    held = _workspace.get((device, stream), (None, None))[1]
+    if m <= 1 or not part or (held is not None and m * part <= 4 * held.numel()):
+        return [(0, m)]
+    budget = int(_free_bytes(device) * GROUP_SHARE)
+    return row_groups(m, unit, part + 4 * e * (k + np_), budget) or [(0, m)]
+
+
+def _launch(name, lead, m, ws, sw, kp, np_, tile, plan, params, device, tail=(), experts=1,
+            keep=True):
     """One launch of ``name`` over ``experts`` weights (K1's stack; K4
-    takes one), each with its own workspace.  Returns (experts, M, Np)."""
+    takes one), each with its own workspace (``keep``: see
+    :func:`_buffers`).  Returns (experts, M, Np)."""
     out = torch.empty((experts, m, np_), dtype=torch.float32, device=device)
     if m == 0:
         return out
@@ -461,9 +526,10 @@ def _launch(name, lead, m, ws, sw, kp, np_, tile, plan, params, device, tail=(),
     n_part = experts * nk * m * np_ if nk > 1 else 0
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        tickets, floats = _buffers(device, stream, experts * plan.tickets,
-                                   n_part + experts * plan.scratch_floats,
-                                   (experts, nk, m, np_))
+        t_buf, f_buf = _buffers(device, stream, experts * plan.tickets,
+                                n_part + experts * plan.scratch_floats,
+                                (experts, nk, m, np_), keep)
+        tickets, floats = t_buf.data_ptr(), f_buf.data_ptr()
         scratch = floats + 4 * n_part if plan.scratch_floats else None
         mid = ((tickets, plan.tickets, scratch, plan.scratch_floats)
                if name == "fused_sliced_matmul_launch" else (tickets, scratch))
@@ -498,9 +564,12 @@ def fused_sliced_matmul_cuda(
     x (E, M, K), ws (E, Sw, Kp, Np), sw (E, nk, nn) -> (E, M, Np), is one
     launch, expert ``i`` bit-equal to the call on ``x[i], ws[i], sw[i]``
     (its ``dynamic`` range tiles its own, as in the reference's ``vmap``
-    of the fused kernel), counted by ``stack_counter``.  Raises on
-    anything the kernel does not take (it never falls back to the plain
-    version)."""
+    of the fused kernel), counted by ``stack_counter``.  A call whose
+    K-block partials would take more than half of the free memory is one
+    launch a row group (:func:`row_groups`), with the same bits; each
+    launch counts, and the groups' workspace goes back to the card.
+    Raises on anything the kernel does not take (it never falls back to
+    the plain version)."""
     who = "fused_sliced_matmul_cuda"
     stack = x.dim() == 3
     _need(who, x.dim() in (2, 3) and ws.dim() == x.dim() + 1 and sw.dim() == x.dim(),
@@ -516,13 +585,30 @@ def fused_sliced_matmul_cuda(
     _need(who, k <= kp and kp - k < tile, f"K={k} inconsistent with Kp={kp}")
     _need(who, e * nk <= 65535, f"{e} experts x {nk} K-blocks exceed grid y")
     params = _spec_arrays(input_spec, weight_spec, rdac, radc, adc_mode, tile)
-    plan = plan_k1(m, kp, np_, tile, input_spec.n_slices, weight_spec.n_slices, adc_mode, bm,
-                   radc)
-    out = _launch("fused_sliced_matmul_launch", (x.data_ptr(), k, m, k, e), m, ws, sw,
-                  kp, np_, tile, plan, params, x.device, (float(np.float32(drift)),),
-                  experts=e)
-    if m:
-        (stack_counter if stack else counter).count += 1
+    unit = min(bm, m) if adc_mode == "dynamic" and radc > 1 else 1
+    groups = _groups(x.device, e, m, k, nk, np_, unit)
+    whole = len(groups) == 1
+    out = None if whole else torch.empty((e, m, np_), dtype=torch.float32, device=x.device)
+    for r0, r1 in groups:
+        rows = r1 - r0
+        xg = xe[:, r0:r1].contiguous()
+        plan = plan_k1(rows, kp, np_, tile, input_spec.n_slices, weight_spec.n_slices,
+                       adc_mode, bm, radc)
+        part = _launch("fused_sliced_matmul_launch", (xg.data_ptr(), k, rows, k, e), rows,
+                       ws, sw, kp, np_, tile, plan, params, x.device,
+                       (float(np.float32(drift)),), experts=e, keep=whole)
+        if rows:
+            (stack_counter if stack else counter).count += 1
+        if out is None:
+            out = part
+        else:
+            out[:, r0:r1] = part
+        del xg, part
+    if not whole:
+        # the groups' workspace goes back to the card whole: left in the cache,
+        # later allocations split it and the next grouped call cannot take it
+        with torch.cuda.device(x.device):
+            torch.cuda.empty_cache()
     return out if stack else out[0]
 
 

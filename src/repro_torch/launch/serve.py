@@ -33,14 +33,18 @@ prompt_len), 0, vocab)``, the reference's draw.  ``--arch`` takes the
 ported configurations: qwen2-0.5b, h2o-danube-1.8b, the MoE models
 qwen3-moe-235b-a22b and kimi-k2-1t-a32b (token-choice top-8 experts in
 every layer; one layer of qwen3-moe fills an H100 at its published
-widths), and rwkv6-1.6b, the attention-free RWKV6, whose recurrent
-state the lockstep mode carries in its dense cache::
+widths), rwkv6-1.6b, the attention-free RWKV6, and jamba-v0.1-52b, the
+hybrid of Mamba and attention layers in periods of 8 (``--layers`` takes
+whole periods; one published period, MoE included, needs ~208 GB of
+faithful slices, more than one H100), whose recurrent state the
+lockstep mode carries in its dense cache::
 
     python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b --layers 1 \
         --policy mem_faithful
     python -m repro_torch.launch.serve --arch rwkv6-1.6b --policy mem_faithful
+    python -m repro_torch.launch.serve --arch jamba-v0.1-52b --smoke --policy mem_faithful
 
-With ``--requests`` rwkv6 raises ``NotImplementedError``, as the
+With ``--requests`` rwkv6 and jamba raise ``NotImplementedError``, as the
 reference does: the continuous-batching engine takes all-attention
 models (the MoE ones included) only.
 """

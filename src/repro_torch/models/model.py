@@ -2,8 +2,10 @@
 the paged KV caches, the decode step (dense or paged), the chunked
 prefill step and the speculative verify step (port of the
 decoder parts of ``repro/models/model.py``): dense attention decoders,
-their MoE layers (the ``moe`` family) and the RWKV6 ``ssm`` family,
-whose dense cache holds each layer's recurrent state instead of K / V.
+their MoE layers (the ``moe`` family), the RWKV6 ``ssm`` family and the
+``hybrid`` jamba (Mamba and attention layers in period groups, MoE on
+some), whose dense cache holds each recurrent layer's state instead of
+K / V.
 
 The reference scans each segment of identical layers with ``lax.scan``
 (rematerialised per step in ``forward`` and per chunk in ``loss_fn``);
@@ -15,12 +17,12 @@ the same keys, as the reference's recompute does).  The ``lax.cond``
 that skips the vocab head on non-final prefill chunks is a host ``if``.
 Caches are updated in place (the reference donates them).  The layer
 key chain is the reference's:
-``fold_in(fold_in(rng, segment), layer)``.  Vision prefixes, encoders,
-Mamba and hybrid layers raise ``NotImplementedError``; the paged cache,
-chunked prefill and speculative verify take attention layers (with or
-without MoE) only, as the reference's.  :func:`loss_fn` (the trainer)
-takes attention layers with the MLP only: RWKV6 and MoE layers serve but
-are not ported to training yet.
+``fold_in(fold_in(rng, segment), step)``, a hybrid's step being a whole
+group.  Vision prefixes and encoders raise ``NotImplementedError``; the
+paged cache, chunked prefill and speculative verify take homogeneous
+attention layers (with or without MoE) only, as the reference's.
+:func:`loss_fn` (the trainer) takes attention layers with the MLP only:
+RWKV6, Mamba and MoE layers serve but are not ported to training yet.
 """
 from __future__ import annotations
 
@@ -45,14 +47,15 @@ from .common import (
     unstack_layers,
 )
 from .config import ArchConfig
-from .ssm import init_rwkv6_state
+from .ssm import init_mamba_state, init_rwkv6_state
 from .transformer import (
     block_chunk,
     block_decode,
     block_forward,
     block_verify,
+    group_size,
     init_block_params,
-    layer_kind,
+    n_groups,
 )
 
 __all__ = [
@@ -70,8 +73,10 @@ __all__ = [
 
 
 def segments(cfg: ArchConfig) -> list[tuple[int, int, int]]:
-    """[(start_layer, n_steps, template_layer_idx), ...] — contiguous runs
-    of structurally identical layers."""
+    """[(start, n_steps, template_layer_idx), ...] — contiguous runs of
+    structurally identical layers; a hybrid is one segment of its groups."""
+    if cfg.family == "hybrid":
+        return [(0, n_groups(cfg), 0)]
     sigs = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
     segs, start = [], 0
     for i in range(1, cfg.n_layers + 1):
@@ -138,9 +143,11 @@ def forward(
 ):
     """Hidden states (B, S, d) after the final norm of ``batch["tokens"]``
     (B, S); with ``mode == "prefill"`` also the per-segment serving
-    states stacked over the segment's layers: ``{"seg{i}": {"k", "v"}}``,
+    states stacked over the segment's steps: ``{"seg{i}": {"k", "v"}}``,
     each (steps, B, S, KV, hd), for attention layers, ``{"s", "x_prev"}``
-    ((steps, B, H, N, N) and (steps, B, d)) for RWKV6 layers.
+    ((steps, B, H, N, N) and (steps, B, d)) for RWKV6 layers, ``{"h",
+    "conv"}`` ((steps, B, d_in, N) float32 and (steps, B, K-1, d_in)) for
+    Mamba layers, and ``{"l{j}": ...}`` of these for a hybrid's groups.
     ``programmed`` is weight-stationary state from
     :func:`repro_torch.models.programmed.program_params` (no layer
     re-programs); without it every hardware layer programs its weight
@@ -174,10 +181,7 @@ def forward(
             x, st = block_forward(layers[idx], x, cfg, tmpl, **kw)
             if mode == "prefill":
                 states.append(st)
-        all_states[f"seg{si}"] = (
-            {k: torch.stack([st[k] for st in states]) for k in states[0]}
-            if mode == "prefill" else None
-        )
+        all_states[f"seg{si}"] = _stack_states(states) if mode == "prefill" else None
     x = norm(x, params["final_norm"], cfg.norm)
     if mode == "prefill":
         return x, all_states
@@ -204,7 +208,7 @@ def loss_fn(
     and the picked logit, and with ``remat`` is recomputed in the
     backward pass.  The sum over chunks and the count run in order from
     zero, then ``tot / max(cnt, 1)``.  Raises ``NotImplementedError`` for
-    RWKV6 and MoE layers (their gradients are not held against the
+    RWKV6, Mamba and MoE layers (their gradients are not held against the
     reference's)."""
     kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
     if any(kind == "ssm" for kind, _ in kinds):
@@ -244,23 +248,43 @@ def loss_fn(
     return tot / torch.clamp_min(cnt, 1.0)
 
 
-def _seg_cache(cfg, tmpl, steps, batch, max_len, dtype, device):
-    """One segment's dense serving state, stacked over its layers: K / V
-    of attention layers, the RWKV6 state ``s`` (float32) and ``x_prev``
-    (in ``dtype``) of recurrent ones."""
-    if layer_kind(cfg, tmpl) == "ssm":
-        return init_rwkv6_state(cfg, batch, steps, dtype, device)
+def _stack_states(states: list):
+    """Per-step state trees (nested dicts of tensors) stacked over the
+    steps."""
+    if isinstance(states[0], dict):
+        return {k: _stack_states([st[k] for st in states]) for k in states[0]}
+    return torch.stack(states)
+
+
+def _layer_cache(cfg, layer_idx, steps, batch, max_len, dtype, device):
+    """A layer's dense serving state stacked over ``steps``: K / V of an
+    attention layer, the RWKV6 state ``s`` (float32) and ``x_prev``, or
+    the Mamba state ``h`` (float32) and ``conv`` (``x_prev`` and ``conv``
+    in ``dtype``)."""
+    if cfg.layer_kind(layer_idx)[0] == "ssm":
+        init = init_rwkv6_state if cfg.ssm.kind == "rwkv6" else init_mamba_state
+        return init(cfg, batch, steps, dtype, device)
     shape = (steps, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _seg_cache(cfg, tmpl, steps, batch, max_len, dtype, device):
+    """One segment's dense serving state stacked over its steps: a layer's
+    (:func:`_layer_cache`), or a hybrid group's ``{"l{j}": ...}``."""
+    g = group_size(cfg)
+    if g == 1:
+        return _layer_cache(cfg, tmpl, steps, batch, max_len, dtype, device)
+    return {f"l{j}": _layer_cache(cfg, j, steps, batch, max_len, dtype, device)
+            for j in range(g)}
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device="cuda"):
     """The DENSE serving cache: ``pos`` (batch,) int32 and per segment
-    ``{"k", "v"}`` of shape (steps, batch, max_len, KV, hd), or for RWKV6
-    layers ``{"s", "x_prev"}`` of shapes (steps, batch, H, N, N) and
-    (steps, batch, d), whatever ``max_len``."""
+    ``{"k", "v"}`` of shape (steps, batch, max_len, KV, hd), or for
+    recurrent layers their state whatever ``max_len`` (RWKV6 ``{"s",
+    "x_prev"}``, Mamba ``{"h", "conv"}``; a hybrid's ``{"l{j}": ...}``)."""
     if cfg.encoder is not None:
         raise NotImplementedError("encoder-decoder models are not ported to repro_torch yet")
     cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=device), "blocks": {}}
@@ -316,9 +340,9 @@ def copy_paged_block(cache: dict, src: int, dst: int) -> dict:
 
 def _layers(params, cfg, cache, programmed, rng):
     """Yield ``(params, programmed, state, rng, template_idx)`` of every
-    layer in order (the reference's scan over stacked segments);
-    ``state`` holds views of the layer's dense K / V rows or pools, or of
-    its recurrent state."""
+    step in order (the reference's scan over stacked segments; a hybrid's
+    step is a group); ``state`` holds views of the dense K / V rows or
+    pools, or of the recurrent state."""
     prog_blocks = pget(programmed, "blocks")
     for si, (start, steps, tmpl) in enumerate(segments(cfg)):
         seg_p = params["blocks"][f"seg{si}"]
@@ -327,7 +351,7 @@ def _layers(params, cfg, cache, programmed, rng):
         rng_s = fold_in(rng, si)
         for idx in range(steps):
             prog_l = None if prog_seg is None else layer_slice(prog_seg, idx)
-            state = {k: t[idx] for k, t in seg_c.items()}
+            state = layer_slice(seg_c, idx)
             yield layer_slice(seg_p, idx), prog_l, state, fold_in(rng_s, idx), tmpl
 
 

@@ -1,15 +1,17 @@
-"""Program-once weight-stationary inference (port of the attention-,
-RWKV6- and MoE-layer parts of ``repro/models/programmed.py``).
+"""Program-once weight-stationary inference (port of
+``repro/models/programmed.py`` for decoder models).
 
 :func:`program_params` walks the model once, resolves each logical layer
 name through the ``MemPolicy`` and materialises the programmed state
 (``PreparedWeight`` for faithful layers, ``FoldedWeight`` for fast ones,
 ``None`` for digital ones) in a tree mirroring the params, stacked over
-layers like them; an MoE layer's experts are one programmed stack per
+steps like them; an MoE layer's experts are one programmed stack per
 projection (:func:`repro_torch.models.moe.program_experts`).  Layer
 names and the key chain mirror :func:`repro_torch.models.model.decode_step`
-(``fold_in(fold_in(rng, segment), layer)`` then ``layer_key(·, name)``),
-so programming is a pure function of ``(params, cfg, policy, rng)``;
+(``fold_in(fold_in(rng, segment), step)`` then ``layer_key(·, name)``;
+every layer of a hybrid group takes the group's key, and names carry no
+layer index, so a group's Mamba layers draw the same noise), so
+programming is a pure function of ``(params, cfg, policy, rng)``;
 programming runs on the params' device.
 """
 from __future__ import annotations
@@ -22,7 +24,7 @@ from .common import layer_slice, stack_layers, tree_leaves
 from .config import ArchConfig
 from .model import segments
 from .moe import program_experts
-from .transformer import layer_kind
+from .transformer import group_size
 
 __all__ = ["program_params", "programmed_byte_size"]
 
@@ -35,21 +37,23 @@ def _prog_dense(p: dict, name: str, rng, policy: MemPolicy, t_prog, kernels):
 
 
 # (param key, layer-name suffix) of each mixer's projections
-_PROJ = {
-    "attn": (("q_proj", "q"), ("k_proj", "k"), ("v_proj", "v"), ("o_proj", "o")),
-    "ssm": (("r_proj", "r"), ("k_proj_ssm", "k"), ("v_proj_ssm", "v"), ("g_proj", "g"),
-            ("wkv_out", "o")),
-}
+_ATTN_PROJ = (("q_proj", "q"), ("k_proj", "k"), ("v_proj", "v"), ("o_proj", "o"))
+_RWKV6_PROJ = (("r_proj", "r"), ("k_proj_ssm", "k"), ("v_proj_ssm", "v"), ("g_proj", "g"),
+               ("wkv_out", "o"))
+_MAMBA_PROJ = (("in_proj", "in"), ("in_proj_z", "z"), ("x_proj", "xp"), ("dt_proj", "dt"),
+               ("out_proj", "out"))
 
 
 def _prog_layer(p: dict, cfg: ArchConfig, layer_idx: int, rng, policy, t_prog, kernels):
     """One layer, named ``L.{kind}`` as the forward and decode steps name
     it: the name is part of every programming-noise key."""
-    kind = layer_kind(cfg, layer_idx)
+    kind, _ = cfg.layer_kind(layer_idx)
     name = f"L.{kind}"
+    table = (_ATTN_PROJ if kind == "attn" else
+             _RWKV6_PROJ if cfg.ssm.kind == "rwkv6" else _MAMBA_PROJ)
     mixer = {
         pk: _prog_dense(p[kind][pk], f"{name}.{suffix}", rng, policy, t_prog, kernels)
-        for pk, suffix in _PROJ[kind]
+        for pk, suffix in table
     }
     if "moe" in p:
         return {kind: mixer, "moe": _prog_moe(p["moe"], name, rng, policy, t_prog, kernels)}
@@ -58,6 +62,16 @@ def _prog_layer(p: dict, cfg: ArchConfig, layer_idx: int, rng, policy, t_prog, k
         for k in ("wi", "wg", "wo")
     }
     return {kind: mixer, "mlp": mlp}
+
+
+def _prog_block(p: dict, cfg: ArchConfig, template_idx: int, rng, policy, t_prog, kernels):
+    """One step: a layer, or a hybrid group ``{"l{j}": layer}`` with the
+    group's ``rng`` for every layer (the forward's convention)."""
+    g = group_size(cfg)
+    if g == 1:
+        return _prog_layer(p, cfg, template_idx, rng, policy, t_prog, kernels)
+    return {f"l{j}": _prog_layer(p[f"l{j}"], cfg, j, rng, policy, t_prog, kernels)
+            for j in range(g)}
 
 
 def _prog_moe(p: dict, name: str, rng, policy, t_prog, kernels):
@@ -92,7 +106,7 @@ def program_params(
         seg_p = params["blocks"][f"seg{si}"]
         rng_seg = fold_in(rng, si)
         prog["blocks"][f"seg{si}"] = stack_layers(
-            lambda i: _prog_layer(
+            lambda i: _prog_block(
                 layer_slice(seg_p, i), cfg, tmpl, fold_in(rng_seg, i), policy, t_prog,
                 kernels,
             ),

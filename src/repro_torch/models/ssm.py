@@ -1,28 +1,37 @@
-"""RWKV6 (Finch) time-mix: the recurrent block of the ``ssm`` family
-(port of the RWKV6 half of ``repro/models/ssm.py``; Mamba is not
-ported yet).
+"""State-space blocks (port of ``repro/models/ssm.py``): the RWKV6
+(Finch) time-mix of the ``ssm`` family and the Mamba (S6) selective scan
+of the hybrid jamba.
 
-Per head h with key / value dims (N, N), arXiv:2404.05892:
+RWKV6, per head h with key / value dims (N, N), arXiv:2404.05892:
 
     S_t = diag(w_t) S_{t-1} + k_t^T v_t,   o_t = r_t (S_t + u k_t^T v_t)
 
 with the data-dependent decay ``w_t = exp(-exp(w0 + lora(x_t)))`` and
-token-shift input mixing.  The projections (r, k, v, g and the output)
-route through the mem-policy-aware :func:`~.common.dense`; the WKV
-recurrence stays digital, as in the reference: plain PyTorch, the same
-on the CPU and on a card (the reference computes it with ``lax.scan``
-and einsums, outside any Pallas kernel).
+token-shift input mixing.  Mamba, arXiv:2312.00752: x -> ``in_proj`` ->
+causal depthwise conv -> SiLU -> the selective SSM
 
-The decay replays XLA's CPU arithmetic where it feeds an exponent:
-``tanh``, ``exp`` and ``log`` are :mod:`~repro_torch.core.xmath`'s,
-the chunked form's cumulative sum is XLA's order
-(:func:`~repro_torch.core.xmath.cumsum_last` on the chunk axis), and
-results below the float32 normal range are flushed to zero as XLA's CPU
-code flushes them (:func:`~repro_torch.core.xmath.ftz`).  The einsums
-keep torch's summation orders, the group norm takes the port's pairwise
-row mean and the correctly rounded ``rsqrt`` (XLA's CPU one is an ulp
-off on ~14 % of inputs); the tests state the tolerance that costs
-(``tests/test_torch_rwkv6.py``).
+    h_t = exp(dt_t a) * h_{t-1} + (dt_t x_t) B_t,   y_t = h_t . C_t + D x_t
+
+(dt, B, C data-dependent through ``x_proj`` and ``dt_proj``, ``a`` learned)
+-> gated by SiLU(``in_proj_z`` x) -> ``out_proj``.  The projections route
+through the mem-policy-aware :func:`~.common.dense`; both recurrences stay
+digital, as in the reference: plain PyTorch, the same on the CPU and on a
+card (the reference computes them with ``lax.scan`` and einsums, outside
+any Pallas kernel).
+
+The transcendentals replay XLA's CPU arithmetic: RWKV6's ``tanh``,
+``exp`` and ``log``, Mamba's ``softplus`` (``logaddexp(x, 0)``: ``max(x,
+0) + log1p(exp(-|x|))``), ``exp`` and SiLU are
+:mod:`~repro_torch.core.xmath`'s, results below the float32 normal range
+flushed to zero as XLA's CPU code flushes them
+(:func:`~repro_torch.core.xmath.ftz`); the chunked WKV form's cumulative
+sum is XLA's order (:func:`~repro_torch.core.xmath.cumsum_last` on the
+chunk axis).  The einsums keep torch's summation orders and the products
+torch's roundings (XLA's CPU code fuses a multiply into the add that
+takes it), RWKV6's group norm takes the port's pairwise row mean and the
+correctly rounded ``rsqrt`` (XLA's CPU one is an ulp off on ~14 % of
+inputs); the tests state the tolerance that costs
+(``tests/test_torch_rwkv6.py``, ``tests/test_torch_mamba.py``).
 """
 from __future__ import annotations
 
@@ -38,11 +47,16 @@ __all__ = [
     "rwkv6_block",
     "rwkv6_decode",
     "init_rwkv6_state",
+    "init_mamba_params",
+    "mamba_block",
+    "mamba_decode",
+    "init_mamba_state",
 ]
 
 WKV_CHUNK = 32  # tokens per chunk of the chunk-parallel form
 CHUNKED_FROM = 64  # sequences this long or longer take the chunked form
 WKV_GROUP = 16  # chunks whose state-free terms the chunked form computes at once
+SCAN_CHUNK = 256  # tokens whose decays and inputs the Mamba scan computes at once
 
 
 def _rwkv_dims(cfg):
@@ -221,3 +235,132 @@ def rwkv6_decode(p, x1, cfg, *, policy, rng, name, state, x_prev, prepared=None,
         x_prev=x_prev, prepared=prepared, kernels=kernels,
     )
     return y[:, 0], state, x_last
+
+
+# ---------------------------------------------------------------------------
+# Mamba
+# ---------------------------------------------------------------------------
+
+def _mamba_dims(cfg):
+    """(d_inner, dt_rank, d_state, d_conv); ``dt_rank`` 0 is
+    ``ceil(d_model / 16)``."""
+    s = cfg.ssm
+    return s.expand * cfg.d_model, s.dt_rank or -(-cfg.d_model // 16), s.d_state, s.d_conv
+
+
+def init_mamba_params(key, cfg, dtype=torch.float32, device="cuda"):
+    """The Mamba block's params, the reference's draws bit for bit
+    (``split(key, 8)``); ``a_log = log(1 .. d_state)`` by XLA's ``log``."""
+    d = cfg.d_model
+    d_in, dt_rank, d_state, d_conv = _mamba_dims(cfg)
+    ks = split(key, 8)
+    kw = dict(dtype=dtype, device=device)
+    a = torch.arange(1, d_state + 1, dtype=torch.float32, device=device).repeat(d_in, 1)
+    return {
+        "in_proj": make_dense_params(ks[0], d, d_in, False, **kw),
+        "in_proj_z": make_dense_params(ks[1], d, d_in, False, **kw),
+        "conv": {"w": uniform_init(ks[2], (d_conv, d_in), **kw),
+                 "b": torch.zeros((d_in,), **kw)},
+        "x_proj": make_dense_params(ks[3], d_in, dt_rank + 2 * d_state, False, **kw),
+        "dt_proj": make_dense_params(ks[4], dt_rank, d_in, True, **kw),
+        "a_log": xmath.log(a),
+        "d_skip": torch.ones((d_in,), **kw),
+        "out_proj": make_dense_params(ks[5], d_in, d, False, **kw),
+    }
+
+
+def _causal_conv(x, w, b, cache=None):
+    """Depthwise causal conv of x (B, S, C) by w (K, C), in ``x.dtype``:
+    the K products of each tap added in order, then ``+ b``.  ``cache``
+    (B, K-1, C) holds the previous inputs (zeros without it).  Returns
+    (out, the last K-1 inputs)."""
+    k = w.shape[0]
+    w = w.to(x.dtype)
+    pad = (torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+           if cache is None else cache.to(x.dtype))
+    xp = torch.cat([pad, x], dim=1)
+    s = x.shape[1]
+    out = xp[:, :s] * w[0]
+    for i in range(1, k):
+        out = out + xp[:, i:i + s] * w[i]
+    return out + b.to(x.dtype), (xp[:, -(k - 1):] if k > 1 else None)
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` (``logaddexp(x, 0)``) as XLA's CPU code computes
+    it: ``max(x, 0) + log1p(exp(-|x|))``.  Finite inputs."""
+    return xmath.ftz(torch.clamp_min(x, 0.0) + xmath.log1p(_exp(-x.abs())))
+
+
+def _selective_scan(xc, dt, bmat, cmat, a, h):
+    """The selective scan a token at a time: xc, dt (B, S, d_in), bmat,
+    cmat (B, S, N), a (d_in, N), h (B, d_in, N), all float32.  Per token
+    ``h = exp(dt a) * h + (dt x) B`` and ``y = h . C``; the decays and
+    inputs of ``SCAN_CHUNK`` tokens are computed at once, the readouts of
+    their states in one product.  Returns (y (B, S, d_in), the last h)."""
+    b, s, d_in = xc.shape
+    ys = []
+    for c0 in range(0, s, SCAN_CHUNK):
+        c1 = min(c0 + SCAN_CHUNK, s)
+        dtc = dt[:, c0:c1, :, None]
+        da = _exp(dtc * a)  # (B, C, d_in, N)
+        dbx = (dtc * xc[:, c0:c1, :, None]) * bmat[:, c0:c1, None, :]
+        hs = torch.empty_like(da)
+        for t in range(c1 - c0):
+            h = torch.add(da[:, t] * h, dbx[:, t], out=hs[:, t])
+        ys.append(torch.einsum("bcdn,bcn->bcd", hs, cmat[:, c0:c1]))
+        del da, dbx
+    return (ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)), h.clone()
+
+
+def mamba_block(p, x, cfg, *, policy, rng, name, state=None, conv_cache=None, prepared=None,
+                kernels=True):
+    """Full-sequence Mamba block of x (B, S, d); ``state`` (B, d_in, N)
+    float32 and ``conv_cache`` (B, K-1, d_in) carry a previous segment
+    (zeros without them).  Returns (y, (state, conv window in
+    ``x.dtype``))."""
+    b, s, d = x.shape
+    d_in, dt_rank, d_state, d_conv = _mamba_dims(cfg)
+    kw = dict(policy=policy, rng=rng, kernels=kernels)
+    xin = dense(p["in_proj"], x, name=f"{name}.in", prepared=pget(prepared, "in_proj"), **kw)
+    z = dense(p["in_proj_z"], x, name=f"{name}.z", prepared=pget(prepared, "in_proj_z"), **kw)
+    xc, new_conv = _causal_conv(xin, p["conv"]["w"], p["conv"]["b"], conv_cache)
+    xc = _silu(xc)
+    xdbc = dense(p["x_proj"], xc, name=f"{name}.xp", prepared=pget(prepared, "x_proj"), **kw)
+    bmat = xdbc[..., dt_rank:dt_rank + d_state].to(torch.float32)
+    cmat = xdbc[..., dt_rank + d_state:].to(torch.float32)
+    dt = dense(p["dt_proj"], xdbc[..., :dt_rank], name=f"{name}.dt",
+               prepared=pget(prepared, "dt_proj"), **kw)
+    dt = _softplus(dt.to(torch.float32))
+    a = -_exp(p["a_log"])
+    if state is None:
+        state = torch.zeros((b, d_in, d_state), dtype=torch.float32, device=x.device)
+    xf = xc.to(torch.float32)
+    y, state = _selective_scan(xf, dt, bmat, cmat, a, state)
+    y = (y + xf * p["d_skip"]).to(x.dtype) * _silu(z)
+    out = dense(p["out_proj"], y, name=f"{name}.out", prepared=pget(prepared, "out_proj"), **kw)
+    if new_conv is None:
+        new_conv = torch.zeros((b, d_conv - 1, d_in), dtype=x.dtype, device=x.device)
+    return out, (state, new_conv)
+
+
+def init_mamba_state(cfg, batch, layers, dtype=torch.bfloat16, device="cuda"):
+    """Zero Mamba state of ``layers`` layers: ``h`` (layers, B, d_in, N)
+    float32 and the conv window ``conv`` (layers, B, K-1, d_in) in
+    ``dtype``."""
+    d_in, _, d_state, d_conv = _mamba_dims(cfg)
+    return {
+        "h": torch.zeros((layers, batch, d_in, d_state), dtype=torch.float32, device=device),
+        "conv": torch.zeros((layers, batch, d_conv - 1, d_in), dtype=dtype, device=device),
+    }
+
+
+def mamba_decode(p, x1, cfg, *, policy, rng, name, state, conv_cache, prepared=None,
+                 kernels=True):
+    """One token x1 (B, d) against ``state`` (B, d_in, N) and ``conv_cache``
+    (B, K-1, d_in).  Returns (y1, new state, new conv window)."""
+    y, (state, conv_cache) = mamba_block(
+        p, x1[:, None, :], cfg, policy=policy, rng=rng, name=name, state=state,
+        conv_cache=conv_cache, prepared=prepared, kernels=kernels,
+    )
+    return y[:, 0], state, conv_cache

@@ -1,18 +1,20 @@
-"""Decoder blocks (port of the homogeneous-stack parts of
-``repro/models/transformer.py``): a layer on a whole sequence
-(:func:`block_forward`, train / prefill), one decode step against a
-dense or a paged cache (:func:`block_decode`), a chunk of chunked
-prefill and a speculative verify chunk against the paged pool.
+"""Decoder blocks (port of ``repro/models/transformer.py``): a layer or a
+hybrid group on a whole sequence (:func:`block_forward`, train /
+prefill), one decode step against a dense or a paged cache
+(:func:`block_decode`), a chunk of chunked prefill and a speculative
+verify chunk against the paged pool.
 
-Two layer kinds are ported: the dense attention layer and the RWKV6
-time-mix layer of the ``ssm`` family (its recurrent state in place of
-K / V; chunked prefill and speculative verify refuse it, as the
-reference's do).  An attention layer's FFN is the gated MLP or, in the
-``dense`` / ``moe`` families' MoE layers, the token-choice top-k MoE
-(:mod:`.moe`) on every block path.  Mamba and hybrid layers raise
-``NotImplementedError``.  Layer names (``L.attn.*``, ``L.ssm.*``) and the
-per-layer key are the reference's, so programmed-state lookup and
-programming-noise keys agree with :mod:`.programmed`.
+Layer kinds: the dense attention layer, the RWKV6 time-mix layer of the
+``ssm`` family and the Mamba layer of the ``hybrid`` family (their
+recurrent state in place of K / V; chunked prefill and speculative
+verify refuse both, as the reference's do).  A hybrid model (jamba) steps
+a whole period group at a time (:func:`group_size` layers, params and
+state under ``l0`` .. ``l{g-1}``), every layer of a group with the
+group's key, as the reference's.  A layer's FFN is the gated MLP or, in
+MoE layers, the token-choice top-k MoE (:mod:`.moe`) on every block path.
+Layer names (``L.attn.*``, ``L.ssm.*``, no layer index) and the per-layer
+key are the reference's, so programmed-state lookup and programming-noise
+keys agree with :mod:`.programmed`.
 """
 from __future__ import annotations
 
@@ -29,46 +31,70 @@ from .attention import (
 )
 from .common import activation, dense, make_dense_params, make_norm_params, norm, pget
 from .moe import init_moe_params, moe_block
-from .ssm import init_rwkv6_params, rwkv6_block, rwkv6_decode
+from .ssm import (
+    init_mamba_params,
+    init_rwkv6_params,
+    mamba_block,
+    mamba_decode,
+    rwkv6_block,
+    rwkv6_decode,
+)
 
 __all__ = ["init_block_params", "block_forward", "block_decode", "block_chunk", "block_verify",
-           "layer_kind"]
+           "group_size", "n_groups"]
 
 
-def layer_kind(cfg, layer_idx: int) -> str:
-    """The ported kind of a layer, ``"attn"`` or ``"ssm"`` (RWKV6); raises
-    for the kinds not ported (hybrid groups, Mamba)."""
-    kind, _ = cfg.layer_kind(layer_idx)
-    if cfg.family == "hybrid":
-        raise NotImplementedError("hybrid layers are not ported to repro_torch yet")
-    if kind == "ssm" and cfg.ssm.kind != "rwkv6":
-        raise NotImplementedError(f"{cfg.ssm.kind} layers are not ported to repro_torch yet")
-    return kind
+def group_size(cfg) -> int:
+    """Layers one step covers: a hybrid's period, else 1."""
+    return cfg.hybrid_period if cfg.family == "hybrid" else 1
+
+
+def n_groups(cfg) -> int:
+    g = group_size(cfg)
+    if cfg.n_layers % g:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not whole groups of {g}")
+    return cfg.n_layers // g
 
 
 def _attn_only(cfg, layer_idx: int, what: str) -> None:
-    """Chunked prefill and speculative verify: attention layers only (a
-    recurrent carry cannot replay a right-padded chunk or roll back
-    rejected drafts)."""
-    if layer_kind(cfg, layer_idx) != "attn":
+    """Chunked prefill and speculative verify: homogeneous attention layers
+    only (a recurrent carry cannot replay a right-padded chunk or roll
+    back rejected drafts)."""
+    if group_size(cfg) != 1 or cfg.layer_kind(layer_idx)[0] != "attn":
         raise NotImplementedError(f"{what} requires homogeneous all-attention layers")
 
 
-def init_block_params(key, cfg, layer_idx, dtype=torch.float32, device="cuda"):
+def init_block_params(key, cfg, group_idx, dtype=torch.float32, device="cuda"):
+    """Params of one step: a layer, or a hybrid group ``{"l{j}": layer}``
+    from ``split(key, g)``."""
+    g = group_size(cfg)
+    if g == 1:
+        return _init_one_layer(key, cfg, group_idx, dtype, device)
+    ks = split(key, g)
+    return {f"l{j}": _init_one_layer(ks[j], cfg, group_idx * g + j, dtype, device)
+            for j in range(g)}
+
+
+def _init_one_layer(key, cfg, layer_idx, dtype, device):
     """Params of one layer (the reference's key tree: ``k1, k2 =
-    split(key)``, attention or the RWKV6 time-mix from ``k1``; from
-    ``k2`` the MoE of an MoE layer, else the MLP from ``split(k2, 3)``)."""
-    kind = layer_kind(cfg, layer_idx)
+    split(key)``, attention, the RWKV6 time-mix or the Mamba block from
+    ``k1``; from ``k2`` the MoE of an MoE layer, else the MLP from
+    ``split(k2, 3)``)."""
+    kind, has_moe = cfg.layer_kind(layer_idx)
     d = cfg.d_model
     k1, k2 = split(key)
-    mixer = (init_attn_params(k1, cfg, dtype, device) if kind == "attn"
-             else init_rwkv6_params(k1, cfg, dtype, device))
+    if kind == "attn":
+        mixer = init_attn_params(k1, cfg, dtype, device)
+    elif cfg.ssm.kind == "rwkv6":
+        mixer = init_rwkv6_params(k1, cfg, dtype, device)
+    else:
+        mixer = init_mamba_params(k1, cfg, dtype, device)
     p = {
         "norm1": make_norm_params(d, cfg.norm, dtype, device),
         "norm2": make_norm_params(d, cfg.norm, dtype, device),
         kind: mixer,
     }
-    if cfg.layer_kind(layer_idx)[1]:
+    if has_moe:
         p["moe"] = init_moe_params(k2, cfg, dtype, device)
         return p
     ks = split(k2, 3)
@@ -95,30 +121,51 @@ def _ffn_forward(p, x, cfg, *, policy, rng, name, prepared=None, kernels=True):
     return dense(mlp["wo"], h, name=f"{name}.mlp.wo", prepared=pget(prog, "wo"), **kw)
 
 
-def block_forward(p, x, cfg, template_idx, *, policy, rng, positions,
-                  attn_schedule="masked", prepared=None, kernels=True):
-    """One layer on a full sequence x (B, S, d) (the reference's
-    ``block_forward`` with its ``_layer_forward``): returns (x, state),
-    the layer's serving state: its roped K / V (``{"k", "v"}``) or its
-    RWKV6 state after the last token (``{"s", "x_prev"}``)."""
-    kind = layer_kind(cfg, template_idx)
+def _layer_forward(p, x, cfg, layer_idx, *, policy, rng, positions, attn_schedule,
+                   prepared, kernels):
+    """One layer on a full sequence x (B, S, d): returns (x, state), the
+    layer's serving state: its roped K / V (``{"k", "v"}``), its RWKV6
+    state (``{"s", "x_prev"}``) or its Mamba state (``{"h", "conv"}``)
+    after the last token."""
+    kind, _ = cfg.layer_kind(layer_idx)
     name = f"L.{kind}"
+    kw = dict(policy=policy, rng=rng, kernels=kernels)
     h = norm(x, p["norm1"], cfg.norm)
     if kind == "attn":
         y, (k, v) = attention_block(
-            p["attn"], h, cfg, policy=policy, rng=rng, positions=positions, name=name,
-            attn_schedule=attn_schedule, prepared=pget(prepared, "attn"), kernels=kernels,
+            p["attn"], h, cfg, positions=positions, name=name, attn_schedule=attn_schedule,
+            prepared=pget(prepared, "attn"), **kw,
         )
         state = {"k": k, "v": v}
-    else:
-        y, (s, x_last) = rwkv6_block(p["ssm"], h, cfg, policy=policy, rng=rng, name=name,
-                                     prepared=pget(prepared, "ssm"), kernels=kernels)
+    elif cfg.ssm.kind == "rwkv6":
+        y, (s, x_last) = rwkv6_block(p["ssm"], h, cfg, name=name,
+                                     prepared=pget(prepared, "ssm"), **kw)
         state = {"s": s, "x_prev": x_last}
+    else:
+        y, (s, conv) = mamba_block(p["ssm"], h, cfg, name=name,
+                                   prepared=pget(prepared, "ssm"), **kw)
+        state = {"h": s, "conv": conv}
     x = x + y
     h = norm(x, p["norm2"], cfg.norm)
-    x = x + _ffn_forward(p, h, cfg, policy=policy, rng=rng, name=name, prepared=prepared,
-                         kernels=kernels)
+    x = x + _ffn_forward(p, h, cfg, name=name, prepared=prepared, **kw)
     return x, state
+
+
+def block_forward(p, x, cfg, template_idx, *, policy, rng, positions,
+                  attn_schedule="masked", prepared=None, kernels=True):
+    """One step on a full sequence x (B, S, d) (the reference's
+    ``block_forward``): a layer, returning (x, its state); or a hybrid
+    group, every layer with ``rng``, returning (x, ``{"l{j}": state}``)."""
+    kw = dict(policy=policy, rng=rng, positions=positions, attn_schedule=attn_schedule,
+              kernels=kernels)
+    g = group_size(cfg)
+    if g == 1:
+        return _layer_forward(p, x, cfg, template_idx, prepared=prepared, **kw)
+    states = {}
+    for j in range(g):
+        x, states[f"l{j}"] = _layer_forward(p[f"l{j}"], x, cfg, j,
+                                            prepared=pget(prepared, f"l{j}"), **kw)
+    return x, states
 
 
 def _freeze_inactive(active, new, old):
@@ -129,37 +176,53 @@ def _freeze_inactive(active, new, old):
     return torch.where(active.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
 
 
-def block_decode(p, x1, cfg, template_idx, *, policy, rng, pos, state,
-                 prepared=None, active=None, block_tables=None, kernels=True):
-    """One layer of a decode step: x1 (B, d) -> (x1, state); the layer's
-    dense K / V rows or paged pools, or its RWKV6 ``s`` and ``x_prev``,
-    in ``state`` are updated in place (rows where ``active`` is False
-    keep their recurrent state)."""
-    kind = layer_kind(cfg, template_idx)
+def _layer_decode(p, x1, cfg, layer_idx, *, policy, rng, pos, state, prepared, active,
+                  block_tables, kernels):
+    """One layer of a decode step: x1 (B, d) -> x1; the layer's dense K / V
+    rows or paged pools, its RWKV6 ``s`` and ``x_prev`` or its Mamba ``h``
+    and ``conv`` in ``state`` are updated in place (rows where ``active``
+    is False keep their recurrent state)."""
+    kind, _ = cfg.layer_kind(layer_idx)
     name = f"L.{kind}"
+    kw = dict(policy=policy, rng=rng, kernels=kernels)
     h = norm(x1, p["norm1"], cfg.norm)
     if kind == "attn":
-        y, ck, cv = decode_attention_block(
-            p["attn"], h, cfg, policy=policy, rng=rng, cache_k=state["k"],
-            cache_v=state["v"], pos=pos, name=name, prepared=pget(prepared, "attn"),
-            active=active, block_tables=block_tables, kernels=kernels,
+        y, _, _ = decode_attention_block(
+            p["attn"], h, cfg, cache_k=state["k"], cache_v=state["v"], pos=pos, name=name,
+            prepared=pget(prepared, "attn"), active=active, block_tables=block_tables, **kw,
         )
-        new_state = {"k": ck, "v": cv}
     else:
-        y, s, x_last = rwkv6_decode(
-            p["ssm"], h, cfg, policy=policy, rng=rng, name=name, state=state["s"],
-            x_prev=state["x_prev"], prepared=pget(prepared, "ssm"), kernels=kernels,
-        )
-        state["s"].copy_(_freeze_inactive(active, s, state["s"]))
-        state["x_prev"].copy_(_freeze_inactive(active, x_last, state["x_prev"]))
-        new_state = state
+        if cfg.ssm.kind == "rwkv6":
+            y, *new = rwkv6_decode(p["ssm"], h, cfg, name=name, state=state["s"],
+                                   x_prev=state["x_prev"], prepared=pget(prepared, "ssm"), **kw)
+            keys = ("s", "x_prev")
+        else:
+            y, *new = mamba_decode(p["ssm"], h, cfg, name=name, state=state["h"],
+                                   conv_cache=state["conv"], prepared=pget(prepared, "ssm"),
+                                   **kw)
+            keys = ("h", "conv")
+        for key, t in zip(keys, new):
+            state[key].copy_(_freeze_inactive(active, t, state[key]))
     x1 = x1 + y
     h = norm(x1, p["norm2"], cfg.norm)
-    x1 = x1 + _ffn_forward(
-        p, h[:, None, :], cfg, policy=policy, rng=rng, name=name,
-        prepared=prepared, kernels=kernels,
-    )[:, 0]
-    return x1, new_state
+    return x1 + _ffn_forward(p, h[:, None, :], cfg, name=name, prepared=prepared, **kw)[:, 0]
+
+
+def block_decode(p, x1, cfg, template_idx, *, policy, rng, pos, state,
+                 prepared=None, active=None, block_tables=None, kernels=True):
+    """One step of a decode step: x1 (B, d) -> (x1, state), a layer or a
+    hybrid group (every layer with ``rng``); the step's state — a layer's,
+    or ``{"l{j}": state}`` — is updated in place."""
+    kw = dict(policy=policy, rng=rng, pos=pos, active=active, block_tables=block_tables,
+              kernels=kernels)
+    g = group_size(cfg)
+    if g == 1:
+        return _layer_decode(p, x1, cfg, template_idx, state=state, prepared=prepared,
+                             **kw), state
+    for j in range(g):
+        x1 = _layer_decode(p[f"l{j}"], x1, cfg, j, state=state[f"l{j}"],
+                           prepared=pget(prepared, f"l{j}"), **kw)
+    return x1, state
 
 
 def block_chunk(p, x, cfg, template_idx, *, policy, rng, state, bt_row, start,

@@ -20,7 +20,7 @@ import torch
 from repro_torch.core.drift import drift_clock
 from repro_torch.core.layers import DIGITAL, MemPolicy
 from repro_torch.core.prng import PRNGKey
-from repro_torch.models.common import dense, pget
+from repro_torch.models.common import dense, pget, tree_map
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import decode_step, decode_verify_step, forward, prefill_chunk_step
 from repro_torch.models.programmed import program_params
@@ -47,14 +47,15 @@ def _head_logits(params, hidden, *, policy, rng, programmed, kernels=True):
 def _cache_from_prefill(states, batch, s_prefill, max_len, dtype, device):
     """The dense serving cache from the prefill's per-layer states: K / V
     cast to ``dtype`` and zero-padded along the length axis to
-    ``max_len``; recurrent (RWKV6) states pass through as they are."""
-    def pad(key, x):
-        if key in ("k", "v"):
-            return torch.nn.functional.pad(x.to(dtype), (0, 0, 0, 0, 0, max_len - x.shape[2]))
-        return x
+    ``max_len``; recurrent (RWKV6, Mamba) states pass through as they
+    are."""
+    def pad(tree):
+        return {k: pad(x) if isinstance(x, dict) else
+                torch.nn.functional.pad(x.to(dtype), (0, 0, 0, 0, 0, max_len - x.shape[2]))
+                if k in ("k", "v") else x for k, x in tree.items()}
 
     return {"pos": torch.full((batch,), s_prefill, dtype=torch.int32, device=device),
-            "blocks": {seg: {k: pad(k, x) for k, x in st.items()} for seg, st in states.items()}}
+            "blocks": pad(states)}
 
 
 def make_prefill_step(
@@ -118,9 +119,7 @@ def make_slot_prefill(
             )
             logits = _head_logits(params, hidden[:, int(prompt_len) - 1], policy=policy,
                                   rng=rng, programmed=programmed, kernels=kernels)
-        states = {seg: {k: x.to(cache_dtype) for k, x in st.items()}
-                  for seg, st in states.items()}
-        return logits, states
+        return logits, tree_map(lambda x: x.to(cache_dtype), states)
 
     return slot_prefill
 

@@ -695,15 +695,62 @@ def test_stacked_k1_equals_single_and_plain(card, adc_mode, m, tile):
 
 
 def test_k1_workspace_past_free_memory_raises(card):
-    """A K1 call whose K-block partials (4 B x E x nk x M x Np) exceed the
-    card's free memory raises a clear error before it allocates, and the
-    next call that fits still runs."""
+    """A K1 call that cannot run in row groups (``dynamic`` with ``bm >=
+    M``: one range over the whole call) whose K-block partials (4 B x E x
+    nk x M x Np) exceed the card's free memory raises a clear error
+    before it allocates, and the next call that fits still runs."""
+    m = 16384
     kw = dict(input_spec=INT8, weight_spec=INT8, array_size=(32, 32), rdac=256, radc=1024,
-              adc_mode="dynamic_row")
-    kp, np_, m = 32 * 64, 32 * 1024, 16384  # 64 K-blocks: 137 GB of partials
+              adc_mode="dynamic", bm=m)
+    kp, np_ = 32 * 64, 32 * 1024  # 64 K-blocks: 137 GB of partials
     ws = torch.zeros((4, kp, np_), device=card)
     sw = torch.ones((kp // 32, np_ // 32), device=card)
     x = torch.zeros((m, kp), device=card)
     with pytest.raises(RuntimeError, match="GiB of workspace"):
         sm.fused_sliced_matmul_cuda(x, ws, sw, **kw)
     assert not sm.fused_sliced_matmul_cuda(x[:2], ws, sw, **kw).any()
+
+
+@pytest.mark.parametrize("adc_mode", ["dynamic", "dynamic_row"])
+def test_k1_row_groups_bitwise(card, adc_mode):
+    """A stacked K1 call whose K-block partials take more than half of the
+    free memory (a filler leaves ~1 GiB; the call's are 1.61 GB) runs in
+    row groups, one launch each, on a workspace of its own (the kept one
+    stays as it is), and is bit-equal to the same call in one launch (the
+    filler freed) and to K1 on each expert alone.  Where the groups fall
+    (whole 128-row tiles under ``dynamic``) is held on the CPU
+    (``tests/test_torch_k1_plan.py``)."""
+    import numpy as np
+
+    from repro_torch.models import moe
+
+    rng = np.random.default_rng(11)
+    cfg = DPEConfig(input_spec=INT8, weight_spec=INT8, array_size=(128, 128),
+                    adc_mode=adc_mode, backend="auto")
+    e, m, k, n = 4, 2048, 4096, 1536  # 32 K-blocks: 4 B x 4 x 32 x 2048 x 1536 of partials
+    w = torch.from_numpy(rng.standard_normal((e, k, n)).astype(np.float32)).to(card)
+    x = torch.from_numpy(rng.standard_normal((e, m, k)).astype(np.float32)).to(card)
+    x[1, 1000:] = 0.0
+    prog = moe.program_experts({"wi": w, "wg": w, "wo": w}, cfg, PRNGKey(5))["wi"]
+    del w
+    kw = dict(input_spec=cfg.input_spec, weight_spec=cfg.weight_spec,
+              array_size=cfg.array_size, rdac=cfg.rdac, radc=cfg.radc, adc_mode=adc_mode,
+              bm=128)
+    before = sm.stack_counter.count
+    whole = sm.fused_sliced_matmul_cuda(x, prog.slices, prog.scale, **kw)
+    assert sm.stack_counter.count == before + 1
+    singles = [sm.fused_sliced_matmul_cuda(x[i], prog.slices[i], prog.scale[i], **kw)
+               for i in range(e)]
+    sm._workspace.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(card)[0]
+    filler = torch.empty(free - 2**30, dtype=torch.uint8, device=card)
+    before = sm.stack_counter.count
+    got = sm.fused_sliced_matmul_cuda(x, prog.slices, prog.scale, **kw)
+    del filler
+    assert sm.stack_counter.count - before > 1
+    assert sm._workspace[(x.device, torch.cuda.current_stream().cuda_stream)][1] is None
+    assert torch.equal(got, whole)
+    for i in range(e):
+        assert torch.equal(got[i], singles[i]), i

@@ -176,3 +176,35 @@ def test_no_range_without_adc():
     """radc 1 quantises nothing: ``dynamic`` needs no range tiles."""
     p = sm.plan_k1(150, 5 * 64, 2 * 64, 64, 4, 4, "dynamic", 150, radc=1)
     assert not p.two_pass and p.bmr == p.mr
+
+
+# (M, unit, row bytes, budget): qwen3-moe's wi at batch 4 and a 3,072-token
+# prompt (960 buffer rows, 25.17 MB of partials a row) beside ~9 GiB, and
+# small cases at the edges
+GROUP_CASES = [(960, 128, 25_165_824, 9 * 2**30), (960, 1, 25_165_824, 9 * 2**30),
+               (130, 128, 10, 1_000), (300, 128, 10, 2_560), (300, 128, 10, 2_559),
+               (7, 1, 3, 10), (256, 256, 10, 2_559), (256, 256, 10, 2_560)]
+
+
+@pytest.mark.parametrize("m,unit,row_bytes,budget", GROUP_CASES)
+def test_row_groups_are_whole_tiles_in_order(m, unit, row_bytes, budget):
+    """K1's row groups (``row_groups``): the whole call where it fits;
+    else consecutive ranges that cover M in order, each but the last a
+    whole number of ``unit`` rows (a ``dynamic`` range tile), each within
+    the budget; ``None`` where not one unit fits (a ``dynamic`` call with
+    ``bm >= M`` is one unit of M rows and is never split)."""
+    groups = sm.row_groups(m, unit, row_bytes, budget)
+    if m * row_bytes <= budget:
+        assert groups == [(0, m)]
+        return
+    if unit * row_bytes > budget:
+        assert groups is None
+        return
+    assert groups[0][0] == 0 and groups[-1][1] == m and len(groups) > 1
+    assert all(a[1] == b[0] for a, b in zip(groups, groups[1:]))
+    for r0, r1 in groups:
+        assert r0 % unit == 0 and 0 < r1 - r0
+        assert (r1 - r0) * row_bytes <= budget
+    assert all((r1 - r0) % unit == 0 for r0, r1 in groups[:-1])
+    # the largest group that fits: one more unit would not
+    assert (groups[0][1] + unit) * row_bytes > budget

@@ -28,8 +28,9 @@ The port's own contracts (no reference involved):
 * rows where ``active`` is False keep ``s``, ``x_prev`` and ``pos`` bit
   for bit, and the active rows are the unmasked step's;
 * the ``ServeLoop``, ``init_paged_cache``, ``block_chunk`` and
-  ``block_verify`` refuse rwkv6 as the reference's do; Mamba and hybrid
-  layers (a hybrid's MoE layers too) are refused;
+  ``block_verify`` refuse rwkv6 as the reference's do; the trainer's
+  loss, the paged cache and the chunk / verify blocks refuse Mamba layers
+  and hybrid groups (a hybrid's MoE layers too);
 * the trainer (``loss_fn`` and ``python -m repro_torch.launch.train``)
   refuses rwkv6: its gradients are not ported yet.
 """
@@ -303,15 +304,32 @@ def test_recurrent_serving_refusals_match_reference(model):
 
 
 def test_unported_layer_kinds_raise(model):
+    """Mamba layers and hybrid groups serve through the dense path
+    (``test_torch_hybrid_serve.py``); the surfaces that still refuse them
+    are the trainer's loss, the paged cache and the chunked-prefill and
+    speculative-verify blocks."""
     cfg, qcfg = model["cfg"], get_smoke("qwen2-0.5b")
-    for bad in (cfg.replace(ssm=SSMConfig(kind="mamba")),
-                qcfg.replace(family="hybrid", hybrid_period=2, hybrid_attn_idx=(0,),
-                             hybrid_moe_idx=(1,), ssm=SSMConfig(kind="mamba"),
-                             moe=MoEConfig(n_experts=4, top_k=2, d_expert=64)),
-                qcfg.replace(family="hybrid", hybrid_period=2, hybrid_attn_idx=(0,),
-                             ssm=SSMConfig(kind="mamba"))):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            init_params(bad, 0, device="cpu")
+    mamba = cfg.replace(ssm=SSMConfig(kind="mamba", d_state=8))
+    hybrids = (qcfg.replace(family="hybrid", hybrid_period=2, hybrid_attn_idx=(0,),
+                            hybrid_moe_idx=(1,), ssm=SSMConfig(kind="mamba", d_state=8),
+                            moe=MoEConfig(n_experts=4, top_k=2, d_expert=64)),
+               qcfg.replace(family="hybrid", hybrid_period=2, hybrid_attn_idx=(0,),
+                            ssm=SSMConfig(kind="mamba", d_state=8)))
+    kw = dict(policy=MemPolicy(default=None), rng=None, state={}, prepared=None)
+    for bad in (mamba,) + hybrids:
+        params = init_params(bad, 0, device="cpu")
+        toks = torch.from_numpy(model["prompts"]).long()
+        with pytest.raises(NotImplementedError, match="training ssm layers"):
+            loss_fn(params, bad, {"tokens": toks, "labels": toks}, compute_dtype=torch.float32)
+        with pytest.raises(NotImplementedError, match="all-attention"):
+            init_paged_cache(bad, 2, 32, 8, 9, device="cpu")
+        p = layer_slice(params["blocks"]["seg0"], 0)
+        x = torch.zeros((1, 2, bad.d_model))
+        with pytest.raises(NotImplementedError, match="all-attention"):
+            ttransformer.block_chunk(p, x, bad, 0, bt_row=None, start=0, n_valid=1,
+                                     positions=None, **kw)
+        with pytest.raises(NotImplementedError, match="all-attention"):
+            ttransformer.block_verify(p, x, bad, 0, pos=None, block_tables=None, **kw)
 
 
 @pytest.mark.parametrize("entry", ["loss_fn", "launch.train"])
