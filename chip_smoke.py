@@ -70,9 +70,9 @@ Phases (any failure exits non-zero; nothing is caught):
    full width (``launch``): the default mode (``make_policy
    ("mem_faithful")``, batch 4, prompt 16, 16 new tokens) through the
    dense ``greedy_generate`` (K1 and K6 launched, by the formula; its
-   tok/s and ITL), the same at 2 layers with ``--kernels on`` and
-   ``off`` and with ``--per_call`` (tokens and every logit row
-   bit-equal), ``--requests 8 --slots 4 --gen 8`` through the
+   tok/s and ITL), the same at 1 layer with ``--kernels on`` and
+   ``off`` and at 2 layers with ``--per_call`` (tokens and every logit
+   row bit-equal), ``--requests 8 --slots 4 --gen 8`` through the
    ``ServeLoop`` (K1, K2, K3 launched, every request finished), and one
    1,536-token prompt under ``digital`` through the dense path
    (``attention_chunked``) and the ``ServeLoop`` (equal tokens,
@@ -87,11 +87,11 @@ Phases (any failure exits non-zero; nothing is caught):
    programming, prefill, ITL, idle share and K1 a step), one 4,096-token
    prompt under ``mem_faithful`` (prefill, ITL, peak memory, K1 193 x 5),
    a 100-token prompt under ``digital`` through the chunked WKV form
-   against the same prompt fed token by token (equal tokens,
-   first-token logits within max rel 1e-4), and the default mode at 2
-   layers with ``--kernels on`` against ``off`` and ``--per_call``
-   (tokens and every logit row bit-equal); ``--only rwkv6`` runs this
-   phase alone after the build; then qwen3-moe-235b-a22b (the
+   against the same prompt fed token by token at 4 of the 24 layers
+   (equal tokens, first-token logits within max rel 1e-4), and the
+   default mode at 1 layer with ``--kernels on`` against ``off`` and at
+   2 layers against ``--per_call`` (tokens and every logit row
+   bit-equal); ``--only rwkv6`` runs this phase alone after the build; then qwen3-moe-235b-a22b (the
    token-choice top-8 MoE over 128 experts, ``moe``): at qwen3-moe-smoke
    widths the launcher's default mode and ``--requests`` with the kernels
    bit-equal to their plain versions, K2 / K3 at its head layout (16
@@ -118,7 +118,21 @@ Phases (any failure exits non-zero; nothing is caught):
    the selective scan's share of the prefill) and K1 at each distinct
    projection shape of the path (Mamba, attention, MLP, head) on its
    programmed state bit-equal to its plain version; ``--only jamba`` runs this
-   phase alone after the build;
+   phase alone after the build; then whisper-tiny's encoder-decoder and
+   phi-3-vision-4.2b's patch prefix (``encdec``): whisper-tiny at full
+   width and depth (4 encoder and 4 decoder layers, 1,500 frames) through
+   the launcher's default mode (K1 and K6 by the formula) and the same
+   generation timed and profiled (init, programming, TTFT, ITL, tok/s,
+   idle share, peak memory, K1 in the prefill and a decode step against
+   their bounds, eager launches); phi-3-vision at full width cut to 16 of
+   its 32 layers, 576 patch embeddings ahead of 16 prompt tokens, batch
+   2, 8 new, ``max_len`` 601, likewise; K1 at every distinct (K, N) of
+   both paths (the ragged 51,865- and 32,064-column heads included, and
+   whisper's encoder shapes at its 6,000 rows) bit-equal to its plain
+   version; whisper-smoke and phi3-vision-smoke in
+   the launcher's default mode with the kernels against ``--kernels off``,
+   tokens and logits bit-equal; ``--only encdec`` runs this phase alone
+   after the build;
 5. the trainer (``train``): ``repro_torch.launch.train.main`` at
    qwen2-0.5b's full width and depth under ``make_policy
    ("mem_faithful")``, batch 8 x 128 tokens, loss chunks of 64, remat
@@ -133,7 +147,7 @@ Phases (any failure exits non-zero; nothing is caught):
    projection shape at 1,024 rows and the vocab head at 512 rows (its
    plain version over three slabs of 2,048 columns), bit-equal to its
    plain version (``check_k1_train``);
-   at 2 of the 24 layers (batch 2 x 16, 2 steps) the kernels against
+   at 1 of the 24 layers (batch 2 x 16, 2 steps) the kernels against
    their plain versions and remat on against off, every loss, grad
    norm, parameter and moment bit for bit (``train_plain``); one
    ``adamw`` and one ``adafactor`` update of a full-width layer on the
@@ -718,25 +732,30 @@ def check_bitwise(what, rep_a, rep_b, rids=None):
     print(f"{what}: tokens and all {n} logit rows bit-equal")
 
 
-CUT_LAYERS = 2  # the depth of the kernels-against-plain comparisons of the serving phases
+# the depth of the kernels-against-plain comparisons of the serving, launch, rwkv6 and
+# trainer phases: one layer keeps every projection shape and the head, and each layer
+# more adds a layer of the plain versions to each of the four phases
+CUT_LAYERS = 1
+# the depth of the checks that run the kernels alone (``--per_call`` against the
+# programmed run, the trainer's checkpoint resume): a second layer has keys of its own
+CHECK_LAYERS = 2
 
 
-def cut_depth(qcfg, params, programmed):
-    """qwen2-0.5b at full width cut to its first ``CUT_LAYERS`` layers (views of
-    the stacked leaves; layer i keeps the full model's key chain, so the
-    programmed state of the cut is the full state's first layers).  The
-    plain versions of a full-depth served run take 204 s with the plain
-    K1 rounding once (an H100 at 700 W), so the serving phases hold the
-    kernels against them at this depth."""
+def cut_depth(cfg, params, programmed=None, n=CUT_LAYERS):
+    """A one-segment model (qwen2-0.5b, rwkv6-1.6b) at full width cut to its
+    first ``n`` layers (views of the stacked leaves; layer i keeps the full
+    model's key chain, so the programmed state of the cut is the full
+    state's first layers).  The plain versions of a full-depth served run
+    take 204 s with the plain K1 rounding once (an H100 at 700 W), so the
+    serving phases hold the kernels against them at ``CUT_LAYERS``."""
     from repro_torch.models.common import tree_map
-
-    n = CUT_LAYERS
 
     def first(tree):
         return {**tree, "blocks": {k: tree_map(lambda t: t[:n], v)
                                    for k, v in tree["blocks"].items()}}
 
-    return qcfg.replace(n_layers=n), first(params), first(programmed)
+    cut = None if programmed is None else first(programmed)
+    return cfg.replace(n_layers=n), first(params), cut
 
 
 def check_plain(what, params, qcfg, sc, programmed, reqs, clock=None):
@@ -1072,8 +1091,8 @@ def launch(params, qcfg, card, counters):
     """``repro_torch.launch.serve.main`` at qwen2-0.5b's full width: the
     default mode (``greedy_generate``, K1 and K6 launched); the same at
     ``CUT_LAYERS`` layers with ``--kernels on`` and ``off`` (tokens and
-    every logit row bit-equal) and with ``--per_call`` (bit-equal to the
-    programmed run); ``--requests 8 --slots 4 --gen 8`` (K1, K2, K3
+    every logit row bit-equal) and at ``CHECK_LAYERS`` with ``--per_call``
+    (bit-equal to the programmed run); ``--requests 8 --slots 4 --gen 8`` (K1, K2, K3
     launched, every request finished); one 1,536-token prompt under
     ``digital``, dense (``attention_chunked``) against the ``ServeLoop``
     (K2 / K3): equal tokens, first-token logits within max rel 1e-4."""
@@ -1108,14 +1127,17 @@ def launch(params, qcfg, card, counters):
     t_off = time.monotonic() - t0
     if k1_on <= 0 or ops.COUNTERS["fused_sliced_matmul"].count != k1_on:
         raise AssertionError("launch: --kernels on launched no K1, or --kernels off launched one")
-    per_call = launcher.main(cut + ["--per_call"], collect_logits=True)
+    two = LAUNCH + ["--layers", str(CHECK_LAYERS)]
+    on2 = launcher.main(two + ["--kernels", "on"], collect_logits=True)
+    per_call = launcher.main(two + ["--per_call"], collect_logits=True)
     torch.cuda.synchronize()
-    for label, other in (("--kernels off", off), ("--per_call", per_call)):
-        if not (torch.equal(on[0], other[0]) and torch.equal(on[1], other[1])):
-            raise AssertionError(f"launch at {CUT_LAYERS} layers: {label} differs from the "
+    for label, ref, other, depth in (("--kernels off", on, off, CUT_LAYERS),
+                                     ("--per_call", on2, per_call, CHECK_LAYERS)):
+        if not (torch.equal(ref[0], other[0]) and torch.equal(ref[1], other[1])):
+            raise AssertionError(f"launch at {depth} layers: {label} differs from the "
                                  "programmed run with the kernels")
-        print(f"launch at {CUT_LAYERS} layers: {label} gives the tokens and all "
-              f"{on[1].shape[0] * on[1].shape[1]} logit rows of the programmed run with the "
+        print(f"launch at {depth} layers: {label} gives the tokens and all "
+              f"{ref[1].shape[0] * ref[1].shape[1]} logit rows of the programmed run with the "
               "kernels, bit for bit")
     print(f"launch at {CUT_LAYERS} layers with the plain versions: {t_off:.1f} s  [{card}]")
 
@@ -1205,6 +1227,9 @@ RWKV_LAUNCH = ["--arch", "rwkv6-1.6b", "--policy", "mem_faithful", "--batch", "4
                "--prompt_len", "16", "--gen", "16"]
 RWKV_K1_STEP = 8 * 24 + 1  # r, k, v, g, o and the MLP's wi, wg, wo in 24 layers + the head
 RWKV_PROMPT = 100  # a digital prefill through the chunked WKV form: 4 chunks, the last padded
+# the depth of that prompt's check against token-by-token decoding, whose 104 decode
+# steps take ~0.27 s each at the full 24 layers
+RWKV_SCAN_LAYERS = 4
 RWKV_LONG = 4096  # one long prompt: the O(1) recurrent state at 4,096 tokens
 RWKV_LONG_NEW = 4  # decode steps after a prefill (greedy_generate's n_steps)
 RWKV_PROFILED = 4  # decode steps of the profiled generation (the idle share, K1 a step)
@@ -1216,11 +1241,12 @@ def rwkv6(card, counters):
     launcher's default mode (``make_policy("mem_faithful")``, batch 4,
     prompt 16, 16 new; K1 and K6 by the formula, no K2 / K3) with its
     programming, prefill, ITL and idle share; the same at ``CUT_LAYERS``
-    layers with ``--kernels on`` and ``off`` and with ``--per_call``
-    (tokens and every logit row bit-equal); a ``RWKV_PROMPT``-token
+    layers with ``--kernels on`` and ``off`` and at ``CHECK_LAYERS`` with
+    ``--per_call`` (tokens and every logit row bit-equal); a ``RWKV_PROMPT``-token
     prompt under ``digital`` (the chunked WKV form) against the same
     prompt fed token by token through ``decode_step`` (the scan): equal
-    tokens, first-token logits within max rel 1e-4; one ``RWKV_LONG``-
+    tokens, first-token logits within max rel 1e-4, at ``RWKV_SCAN_LAYERS``
+    layers (full width, the head included); one ``RWKV_LONG``-
     token prompt under ``mem_faithful`` (its prefill ms, ITL, peak memory
     and K1 launches); and rwkv6-smoke on the card against the CPU (the
     initial weights bit for bit, digital and faithful tokens equal)."""
@@ -1346,29 +1372,31 @@ def rwkv6(card, counters):
 
     # a digital prompt through the chunked form against token-by-token decoding
     prompt = randint(PRNGKey(2), (1, RWKV_PROMPT), 0, cfg.vocab, device="cuda")
+    ccfg, cparams, _ = cut_depth(cfg, params, n=RWKV_SCAN_LAYERS)
     t0 = time.monotonic()
-    dense_tok, dense_logits = greedy_generate(params, cfg, prompt, RWKV_LONG_NEW,
+    dense_tok, dense_logits = greedy_generate(cparams, ccfg, prompt, RWKV_LONG_NEW,
                                               compute_dtype=torch.float32, collect_logits=True)
     torch.cuda.synchronize()
     t_chunked = time.monotonic() - t0
-    cache = init_cache(cfg, 1, 1, dtype=torch.float32, device="cuda")
+    cache = init_cache(ccfg, 1, 1, dtype=torch.float32, device="cuda")
     t0 = time.monotonic()
     for i in range(RWKV_PROMPT):
-        step, cache = decode_step(params, cfg, cache, prompt[:, i], compute_dtype=torch.float32)
+        step, cache = decode_step(cparams, ccfg, cache, prompt[:, i], compute_dtype=torch.float32)
     first, out = step, [torch.argmax(step, dim=-1)]
     for _ in range(RWKV_LONG_NEW):
-        step, cache = decode_step(params, cfg, cache, out[-1], compute_dtype=torch.float32)
+        step, cache = decode_step(cparams, ccfg, cache, out[-1], compute_dtype=torch.float32)
         out.append(torch.argmax(step, dim=-1))
     torch.cuda.synchronize()
     t_scan = time.monotonic() - t0
     scan_tok = torch.stack(out, 1).to(torch.int32)
     rel = rel_max(dense_logits[0, 0], first[0])
-    print(f"rwkv6 {RWKV_PROMPT}-token prompt, digital, {RWKV_LONG_NEW} new: chunked prefill "
+    print(f"rwkv6 at {RWKV_SCAN_LAYERS} layers, a {RWKV_PROMPT}-token prompt, digital, "
+          f"{RWKV_LONG_NEW} new: chunked prefill "
           f"{t_chunked:.2f} s, token by token {t_scan:.2f} s; tokens {dense_tok[0].tolist()} vs "
           f"{scan_tok[0].tolist()}; first-token logits max rel {rel:.3e}  [{card}]")
     if not torch.equal(dense_tok, scan_tok) or not rel <= 1e-4:
         raise AssertionError("rwkv6: the chunked prefill and token-by-token decoding disagree")
-    del params, cache
+    del params, cparams, cache
     torch.cuda.empty_cache()
 
     # kernels against their plain versions, per-call against programmed:
@@ -1385,14 +1413,17 @@ def rwkv6(card, counters):
             or ops.COUNTERS["fused_sliced_matmul"].count != k1_on):
         raise AssertionError("rwkv6: --kernels on launched other than the formula's K1, or "
                              "--kernels off launched one")
-    per_call = launcher.main(cut + ["--per_call"], collect_logits=True)
+    two = RWKV_LAUNCH + ["--layers", str(CHECK_LAYERS)]
+    on2 = launcher.main(two + ["--kernels", "on"], collect_logits=True)
+    per_call = launcher.main(two + ["--per_call"], collect_logits=True)
     torch.cuda.synchronize()
-    for label, other in (("--kernels off", off), ("--per_call", per_call)):
-        if not (torch.equal(on[0], other[0]) and torch.equal(on[1], other[1])):
-            raise AssertionError(f"rwkv6 at {CUT_LAYERS} layers: {label} differs from the "
+    for label, ref, other, depth in (("--kernels off", on, off, CUT_LAYERS),
+                                     ("--per_call", on2, per_call, CHECK_LAYERS)):
+        if not (torch.equal(ref[0], other[0]) and torch.equal(ref[1], other[1])):
+            raise AssertionError(f"rwkv6 at {depth} layers: {label} differs from the "
                                  "programmed run with the kernels")
-        print(f"rwkv6 at {CUT_LAYERS} layers: {label} gives the tokens and all "
-              f"{on[1].shape[0] * on[1].shape[1]} logit rows of the programmed run with the "
+        print(f"rwkv6 at {depth} layers: {label} gives the tokens and all "
+              f"{ref[1].shape[0] * ref[1].shape[1]} logit rows of the programmed run with the "
               "kernels, bit for bit")
     print(f"rwkv6 at {CUT_LAYERS} layers with the plain versions: {t_off:.1f} s  [{card}]")
 
@@ -1799,10 +1830,13 @@ def moe(timer, card, counters, summary, floor):
 JAMBA_ARCH = "jamba-v0.1-52b"
 JAMBA_SMOKE = ["--arch", JAMBA_ARCH, "--smoke", "--policy", "mem_faithful", "--batch", "2",
                "--prompt_len", "8", "--gen", "2"]
-JAMBA_PROFILED = 4  # decode steps of the profiled generation
+JAMBA_PROFILED = 4  # decode steps of the timed and profiled generation
 JAMBA_LONG = 1024  # one long faithful prompt at batch 1
 JAMBA_LONG_NEW = 8
-K1_CHECK_64 = 40_000_000  # weights up to which (d) also checks M = 64 (the plain K1 ~0.11 s/M)
+K1_CHECK_64 = 40_000_000  # weights up to which K1 is also checked at M = 64 (plain ~0.11 s/M)
+# row-weights up to which K1 is also checked at the largest M the path calls it with (the
+# plain K1 ~2 ns a row-weight: ~7 s at whisper's encoder MLP, 6,000 x 1,536 x 384)
+K1_CHECK_ROWS = 4_000_000_000
 
 
 def jamba_full(cfg):
@@ -1831,16 +1865,6 @@ def jamba_shapes(cfg) -> list:
     return shapes + [(d, cfg.vocab)]
 
 
-def jamba_step_bound(cfg, batch: int):
-    """K1's bound for one decode step of ``batch`` rows: each call bound by
-    its slices (16 B a weight), input and output, or by its 32 operations a
-    row-weight.  Returns (ms, GB of slices)."""
-    shapes = jamba_shapes(cfg)
-    ms = sum(bound_ms(16 * k * n + 4 * batch * (k + n), 32 * batch * k * n)[0]
-             for k, n in shapes)
-    return ms, 16 * sum(k * n for k, n in shapes) / 1e9
-
-
 def jamba(timer, card, counters):
     """jamba-v0.1-52b's hybrid period through ``repro_torch.launch.serve``
     and the dense ``greedy_generate``: (a) jamba-smoke, its MoE layers
@@ -1848,25 +1872,21 @@ def jamba(timer, card, counters):
     the kernels against ``--kernels off`` (tokens and every logit row
     bit-equal; K1 and the stacked K1 by the formula) and ``--requests``
     refused; (b) at full width, one period with the dense MLP
-    (:func:`jamba_full`), batch 4, prompt 16, 16 new: init, programming,
-    peak memory, TTFT, ITL, tok/s, the idle share of the prefill and
-    ``JAMBA_PROFILED`` decode steps, eager launches a step, K1 a decode
-    step against its bound (K1 and K6 by the formula); (c) one
-    ``JAMBA_LONG``-token faithful prompt at batch 1: the prefill, and K1's
-    and the selective scan's share of it; (d) K1 at each distinct (K, N)
-    of the path (:func:`jamba_shapes`) on the programmed state of one
-    projection of that shape, M = 4 (and 64 up to ``K1_CHECK_64``
-    weights: the Mamba and attention projections), bit-equal to its
-    plain version."""
+    (:func:`jamba_full`), batch 4, prompt 16, 16 new (K1 and K6 by the
+    formula): init, programming, then ``JAMBA_PROFILED`` new timed and
+    profiled (:func:`_generation`); (c) one ``JAMBA_LONG``-token faithful
+    prompt at batch 1: the prefill, and K1's and the selective scan's
+    share of it; (d) K1 at each distinct (K, N) of the path
+    (:func:`jamba_shapes`) bit-equal to its plain version
+    (:func:`check_k1_sites`)."""
     from repro_torch.configs import get, get_smoke
-    from repro_torch.core.layers import mem_linear
     from repro_torch.core.prng import PRNGKey, randint
     from repro_torch.kernels import ops
     from repro_torch.kernels import sliced_matmul as sm
     from repro_torch.launch import serve as launcher
     from repro_torch.launch.dryrun import make_policy
     from repro_torch.models import init_params, program_params, programmed_byte_size, ssm
-    from repro_torch.models.common import layer_slice, tree_leaves
+    from repro_torch.models.common import tree_leaves
     from repro_torch.serve import greedy_generate
     from repro_torch.serve.engine import make_decode_step, make_prefill_step
 
@@ -1930,14 +1950,9 @@ def jamba(timer, card, counters):
                                compute_dtype=torch.float32, programmed=prog)
 
     generate(1)  # warm-up
-    wall = {}
-    for n in (0, JAMBA_PROFILED, 16):
-        if n == 16:  # the main path's run: its launches are counted
-            ops.reset_counters()
-        t0 = time.monotonic()
-        out = generate(n)
-        torch.cuda.synchronize()
-        wall[n] = time.monotonic() - t0
+    ops.reset_counters()
+    out = generate(16)  # the main path's run: its launches are counted
+    torch.cuda.synchronize()
     for name, n in path_launches().items():
         launched[name] += n
     k6 = len(shapes) * pol.default.weight_spec.n_slices
@@ -1954,26 +1969,10 @@ def jamba(timer, card, counters):
         raise AssertionError(f"{JAMBA_ARCH}: tokens {out}")
     for name, n in launched.items():
         counters[name] = counters.get(name, 0) + n
-    pre, whole = wall[0], wall[16]
-    print(f"{JAMBA_ARCH} dense greedy_generate, mem_faithful (dynamic ADC), batch 4, prompt 16: "
-          f"TTFT {pre * 1e3:.1f} ms, 16 new tokens in {whole * 1e3:.1f} ms: "
-          f"{4 * 16 / whole:.2f} tok/s, ITL {(whole - pre) / 16 * 1e3:.1f} ms; peak device "
-          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
-    g_pre = device_groups(lambda: generate(0))
-    g_all = device_groups(lambda: generate(JAMBA_PROFILED))
-    print_busy(f"{JAMBA_ARCH}'s generation (the prefill and {JAMBA_PROFILED} decode steps)",
-               g_all, wall[JAMBA_PROFILED] * 1e3, card,
-               k1_calls=len(shapes) * (JAMBA_PROFILED + 1))
-    b_step, gb = jamba_step_bound(cfg, 4)
-    if g_pre and g_all:
-        k1_pre, n_pre = g_pre.get("K1", (0.0, 0))[0], sum(n for _, n in g_pre.values())
-        k1 = (g_all.get("K1", (0.0, 0))[0] - k1_pre) / JAMBA_PROFILED
-        n_step = (sum(n for _, n in g_all.values()) - n_pre) / JAMBA_PROFILED
-        print(f"  the prefill: K1 {k1_pre:.3f} ms device, {n_pre} launches; a decode step: K1 "
-              f"{k1:.3f} ms device against its bound {b_step:.3f} ms ({gb:.2f} GB of slices, "
-              f"bytes), {b_step / k1:.1%} of it; {n_step:.0f} launches  [{card}]")
-    else:
-        print(f"  K1 a decode step: not measured; its bound {b_step:.3f} ms ({gb:.2f} GB)")
+    head = [(cfg.d_model, cfg.vocab, 4)]  # on each sequence's last row
+    calls_pre = [(k, n, 4 * 16) for k, n in shapes[:-1]] + head
+    calls_step = [(k, n, 4) for k, n in shapes]
+    _generation(JAMBA_ARCH, generate, calls_pre, calls_step, JAMBA_PROFILED, card)
 
     # (c) one long faithful prompt: the prefill, K1's and the scan's share
     scan_inner, k1_inner = ssm._selective_scan, sm.fused_sliced_matmul_cuda
@@ -2017,8 +2016,8 @@ def jamba(timer, card, counters):
     scan_groups = device_groups(lambda: scan_inner(*first_scan[0]))
     n_scan = sum(n for _, n in scan_groups.values())
     # every projection on the prompt's rows, the head on its last
-    b_pre = sum(bound_ms(16 * k * n + 4 * rows * (k + n), 32 * rows * k * n)[0]
-                for (k, n), rows in zip(shapes, [JAMBA_LONG] * (len(shapes) - 1) + [1]))
+    b_pre = k1_bound([(k, n, JAMBA_LONG) for k, n in shapes[:-1]]
+                     + [(cfg.d_model, cfg.vocab, 1)])[0]
     print(f"{JAMBA_ARCH} {JAMBA_LONG}-token prompt, batch 1, mem_faithful, {JAMBA_LONG_NEW} "
           f"new: prefill {t_pre * 1e3:.1f} ms, of it K1 {k1_ms:.1f} ms device in "
           f"{len(spans['K1'])} calls ({k1_ms / (t_pre * 1e3):.1%}; bound {b_pre:.1f} ms, "
@@ -2031,22 +2030,107 @@ def jamba(timer, card, counters):
     del cache, logits, first_scan, spans
 
     # (d) K1 at each projection shape of the path, on its programmed state, against plain
-    dcfg = pol.default
-    seg_p, seg_q = (layer_slice(t["blocks"]["seg0"], 0) for t in (params, prog))
-    sites = {}  # (K, N) -> one projection of that shape: (name, params, programmed)
-    for j in range(cfg.hybrid_period):
-        for sub, q_sub in seg_q[f"l{j}"].items():
-            for pk, q in q_sub.items():
-                p = seg_p[f"l{j}"][sub][pk]
-                sites.setdefault(tuple(p["w"].shape), (f"l{j}.{sub}.{pk}", p, q))
-    sites.setdefault(tuple(params["lm_head"]["w"].shape),
-                     ("lm_head", params["lm_head"], prog["lm_head"]))
-    if set(sites) != set(shapes):
-        raise AssertionError(f"{JAMBA_ARCH}: checked shapes {sorted(sites)} against the "
-                             f"path's {sorted(set(shapes))}")
-    g = torch.Generator(device="cuda").manual_seed(31)
-    for (k, n), (name, p, q) in sites.items():
-        for m in (4, 64) if k * n <= K1_CHECK_64 else (4,):
+    check_k1_sites(timer, JAMBA_ARCH, params, prog, calls_pre, pol.default, card)
+    del params, prog
+    torch.cuda.empty_cache()
+
+
+WHISPER = "whisper-tiny"
+PHI3V = "phi-3-vision-4.2b"
+WHISPER_LAUNCH = ["--arch", WHISPER, "--policy", "mem_faithful", "--batch", "4", "--prompt_len",
+                  "16", "--gen", "16"]
+PHI3V_LAYERS = 16  # of 32: the whole model's 59.6 GB of slices and 15.3 GB of params fill the card
+PHI3V_BATCH, PHI3V_PROMPT, PHI3V_NEW = 2, 16, 8
+ENCDEC_SMOKE = ["--smoke", "--policy", "mem_faithful", "--batch", "2", "--prompt_len", "8",
+                "--gen", "2"]
+
+
+def encdec_calls(cfg, rows: int, frame_rows: int = 0) -> list:
+    """(K, N, M) of every K1 call of one forward of ``rows`` decoder rows
+    but the head (the caller's: on each sequence's last row): with
+    ``frame_rows`` (a prefill) per encoder layer q / k / v / o and the MLP
+    over those rows; per decoder layer q / k / v / o, the MLP and an
+    encoder-decoder's cross-attention (q and o over the decoder's rows;
+    with ``frame_rows``, k and v over the frames)."""
+    d, ff = cfg.d_model, cfg.d_ff
+    qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    attn = [(d, qd), (d, kvd), (d, kvd), (qd, d)]
+    mlp = [(d, ff), (d, ff), (ff, d)]
+    calls = []
+    if cfg.encoder is not None and frame_rows:
+        calls += [(k, n, frame_rows) for k, n in attn + mlp] * cfg.encoder.n_layers
+    for _ in range(cfg.n_layers):
+        calls += [(k, n, rows) for k, n in attn + mlp]
+        if cfg.encoder is not None:
+            calls += [(d, qd, rows), (qd, d, rows)]
+            calls += [(d, kvd, frame_rows), (d, kvd, frame_rows)] if frame_rows else []
+    return calls
+
+
+def k1_bound(calls) -> tuple:
+    """K1's bound over ``calls`` of (K, N, M): each call its slices (16 B a
+    weight, the columns padded to whole 128-wide tiles, as programmed),
+    its input and output, or its 32 operations a row-weight, whichever
+    is longer; summed.  Returns (ms, GB of slices, what bounds most)."""
+    ms, by_ops, gb = 0.0, 0.0, 0.0
+    for k, n, m in calls:
+        np_ = -(-n // 128) * 128
+        t, by = bound_ms(16 * k * np_ + 4 * m * (k + n), 32 * m * k * n)
+        ms += t
+        by_ops += t if by == "operations" else 0.0
+        gb += 16 * k * np_ / 1e9
+    return ms, gb, "operations" if by_ops > ms / 2 else "bytes"
+
+
+def _walk_sites(sites: dict, p, q, path: str):
+    """Add to ``sites`` each programmed projection of ``q`` (``p``'s
+    params) whose shape it lacks: ``(K, N) -> (path, params, programmed)``."""
+    from repro_torch.core.dpe import PreparedWeight
+
+    if isinstance(q, PreparedWeight):
+        sites.setdefault(tuple(p["w"].shape), (path, p, q))
+    elif isinstance(q, dict):
+        for key, sub in q.items():
+            _walk_sites(sites, p[key], sub, f"{path}.{key}" if path else key)
+
+
+def _prepared_sites(params, prog) -> dict:
+    """(K, N) -> one programmed projection of that shape, ``(name, params,
+    programmed)``, the first layer of every stacked segment and the head."""
+    from repro_torch.models.common import layer_slice
+
+    sites: dict = {}
+    for path in (("encoder", "blocks"), ("blocks", "seg0"), ("cross",)):
+        p, q = params, prog
+        for key in path:
+            p, q = (p or {}).get(key), (q or {}).get(key)
+        if q is not None:
+            _walk_sites(sites, layer_slice(p, 0), layer_slice(q, 0), ".".join(path))
+    _walk_sites(sites, params["lm_head"], prog["lm_head"], "lm_head")
+    return sites
+
+
+def check_k1_sites(timer, arch, params, prog, calls, dcfg, card):
+    """K1 at each distinct (K, N) of ``calls`` (K, N, M) on the programmed
+    state of one projection of that shape, M = 4, 64 (up to
+    ``K1_CHECK_64`` weights) and the largest M of the calls (up to
+    ``K1_CHECK_ROWS`` row-weights: more than one 128-row tile takes the
+    ``dynamic`` ADC's range and quantise launches, the last tile ragged
+    where 128 does not divide M), bit-equal to its plain version; timed
+    beside its bound."""
+    from repro_torch.core.layers import mem_linear
+
+    sites = _prepared_sites(params, prog)
+    shapes = {(k, n) for k, n, _ in calls}
+    if set(sites) != shapes:
+        raise AssertionError(f"{arch}: checked shapes {sorted(sites)} against the path's "
+                             f"{sorted(shapes)}")
+    g = torch.Generator(device="cuda").manual_seed(37)
+    for (k, n), (name, p, q) in sorted(sites.items()):
+        most = max(m for kk, nn, m in calls if (kk, nn) == (k, n))
+        rows = [4] + ([64] if k * n <= K1_CHECK_64 else [])
+        rows += [most] if most > 64 and k * n * most <= K1_CHECK_ROWS else []
+        for m in rows:
             x = torch.randn((m, k), generator=g, device="cuda")
             run = lambda kernels: mem_linear(x, p["w"], p.get("b"), dcfg, None,  # noqa: E731
                                              prepared=q, kernels=kernels)
@@ -2055,17 +2139,217 @@ def jamba(timer, card, counters):
             yp = run(False)
             torch.cuda.synchronize()
             t_plain = (time.monotonic() - t1) * 1e3
-            if not torch.equal(y, yp):
-                raise AssertionError(f"{JAMBA_ARCH} K1 at {name} M={m}: differs from the plain "
+            if y.shape != (m, n) or not torch.equal(y, yp):
+                raise AssertionError(f"{arch} K1 at {name} M={m}: differs from the plain "
                                      f"version by {float((y - yp).abs().max())}")
             ms = timer(lambda: run(True))
-            b, by = bound_ms(16 * k * n + 4 * m * (k + n), 32 * m * k * n)
-            extra = ", bias" if p.get("b") is not None else ""
-            print(f"K1 at jamba's {name} ({k} x {n}{extra}, {-(-k // 128)} K-blocks), M = {m}: "
+            b, _, by = k1_bound([(k, n, m)])
+            ragged = f", N padded to {-(-n // 128) * 128}" if n % 128 else ""
+            print(f"K1 at {arch}'s {name} ({k} x {n}{ragged}, {-(-k // 128)} K-blocks), M = {m}: "
                   f"bit-equal to the plain version; {ms:.3f} ms (bound {b:.3f} ms, {by}), plain "
                   f"{t_plain:.1f} ms  [{card}]")
-    del params, prog
+
+
+def _generation(label, generate, calls_pre, calls_step, n_new, card):
+    """Time ``generate(n)`` (``greedy_generate`` of n new tokens, after a
+    warm-up): TTFT from ``n = 0``, the whole run, tok/s and ITL from ``n =
+    n_new``; then both profiled: the idle share against the timed run's
+    wall, K1's device ms in the prefill (``n = 0``) and a decode step (the
+    difference over ``n_new``) against their bounds, and the launches of
+    each.  ``calls_pre`` / ``calls_step``: (K, N, M) of every K1 call of
+    the prefill / a step."""
+    wall = {}
+    for n in (0, n_new):
+        t0 = time.monotonic()
+        generate(n)
+        torch.cuda.synchronize()
+        wall[n] = time.monotonic() - t0
+    pre, whole = wall[0], wall[n_new]
+    b_pre, _, by_pre = k1_bound(calls_pre)
+    b_step, gb, by_step = k1_bound(calls_step)
+    batch = calls_step[-1][2]
+    print(f"{label} dense greedy_generate, mem_faithful (dynamic ADC), batch {batch}: TTFT "
+          f"{pre * 1e3:.1f} ms, {n_new} new tokens in {whole * 1e3:.1f} ms: "
+          f"{batch * n_new / whole:.2f} tok/s, ITL {(whole - pre) / n_new * 1e3:.1f} ms; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+    g_pre = device_groups(lambda: generate(0))
+    g_all = device_groups(lambda: generate(n_new))
+    print_busy(f"{label}'s generation (the prefill and {n_new} decode steps)", g_all,
+               whole * 1e3, card, k1_calls=len(calls_pre) + n_new * len(calls_step))
+    if not (g_pre and g_all):
+        print(f"  K1 in the prefill and a decode step: not measured; bounds {b_pre:.3f} / "
+              f"{b_step:.3f} ms")
+        return
+    k1_pre, n_k1_pre = g_pre.get("K1", (0.0, 0))
+    n_pre = sum(n for _, n in g_pre.values())
+    k1_step = (g_all.get("K1", (0.0, 0))[0] - k1_pre) / n_new
+    n_step = (sum(n for _, n in g_all.values()) - n_pre) / n_new
+    print(f"  the prefill: K1 {k1_pre:.3f} ms device in {n_k1_pre} launches against its bound "
+          f"{b_pre:.3f} ms ({by_pre}), {b_pre / max(k1_pre, 1e-9):.1%} of it; {n_pre} launches "
+          f"in all; a decode step: "
+          f"K1 {k1_step:.3f} ms device against its bound {b_step:.3f} ms ({gb:.2f} GB of "
+          f"slices, {by_step}), {b_step / max(k1_step, 1e-9):.1%} of it; {n_step:.0f} launches "
+          f"[{card}]")
+
+
+def encdec(timer, card, counters):
+    """whisper-tiny's encoder-decoder and phi-3-vision-4.2b's patch prefix
+    through the dense greedy path under ``make_policy("mem_faithful")``,
+    random weights from seed 0: (a) whisper-tiny at full width and depth
+    (4 encoder and 4 decoder layers, 1,500 frames) through the launcher's
+    default mode, batch 4, prompt 16, 16 new (K1 and K6 by the formula),
+    then the same generation timed and profiled; (b) phi-3-vision at full
+    width, cut to ``PHI3V_LAYERS`` of its 32 layers, its 576 patch
+    embeddings ahead of 16 prompt tokens, batch 2, 8 new, ``max_len``
+    601, timed and profiled (K1 and K6 by the formula); (c) K1 at each
+    distinct (K, N) of both paths (the 51,865- and 32,064-column heads,
+    padded to whole 128-column tiles, included; whisper's encoder shapes
+    also at its 6,000 rows) bit-equal to its plain version
+    (:func:`check_k1_sites`); (d) whisper-smoke and phi3-vision-smoke through the
+    launcher's default mode with ``--kernels on`` against ``off``,
+    tokens and every logit row bit-equal."""
+    from repro_torch.configs import get, get_smoke
+    from repro_torch.core.prng import PRNGKey, randint
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launcher
+    from repro_torch.launch.dryrun import make_policy
+    from repro_torch.models import init_params, program_params, programmed_byte_size
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.serve import greedy_generate
+
+    pol = make_policy("mem_faithful")
+    n_slices = pol.default.weight_spec.n_slices
+
+    # (a) whisper-tiny at full width and depth, the launcher's default mode
+    cfg = get(WHISPER)
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counters()
+    out = launcher.main(WHISPER_LAUNCH)
+    torch.cuda.synchronize()
+    launched = path_launches()
+    frames = 4 * cfg.encoder.n_frames
+    calls_pre, calls_step = encdec_calls(cfg, 4 * 16, frames), encdec_calls(cfg, 4)
+    n_weights = len(calls_pre) + 1
+    expect_k1, expect_k6 = n_weights + 16 * (len(calls_step) + 1), n_weights * n_slices
+    print(f"{WHISPER} launcher default mode: launches {launched}; expected K1 {expect_k1} "
+          f"({n_weights} in the prefill, {len(calls_step) + 1} a decode step), K6 {expect_k6}  "
+          f"[{card}]")
+    if (launched["fused_sliced_matmul"] != expect_k1 or launched["program_noise"] != expect_k6
+            or launched["fused_sliced_matmul_stack"] or launched["paged_decode_attention"]
+            or launched["paged_chunk_attention"]):
+        raise AssertionError(f"{WHISPER}: launches {launched}")
+    if out.shape != (4, 17) or not bool(((out >= 0) & (out < cfg.vocab)).all()):
+        raise AssertionError(f"{WHISPER}: tokens {out}")
+    for name, n in launched.items():
+        counters[name] = counters.get(name, 0) + n
+    t0 = time.monotonic()
+    params = init_params(cfg, PRNGKey(0), device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.monotonic() - t0
+    t0 = time.monotonic()
+    prog = program_params(params, cfg, pol, PRNGKey(0))
+    torch.cuda.synchronize()
+    t_prog = time.monotonic() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"{WHISPER} (d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, {cfg.encoder.n_layers} encoder and {cfg.n_layers} decoder layers, "
+          f"{cfg.encoder.n_frames} frames, vocab {cfg.vocab}): init {n_params / 1e6:.2f} M params "
+          f"in {t_init:.2f} s; programmed {programmed_byte_size(prog) / 1e6:.1f} MB of crossbar "
+          f"state in {t_prog:.2f} s  [{card}]")
+    prompts = randint(PRNGKey(1), (4, 16), 0, cfg.vocab, device="cuda")
+    extra = launcher.side_inputs(cfg, 4, "cuda")
+
+    def generate(n):
+        return greedy_generate(params, cfg, prompts, n, policy=pol, compute_dtype=torch.float32,
+                               extra_batch=extra, programmed=prog)
+
+    if not torch.equal(generate(16), out):  # and the warm-up
+        raise AssertionError(f"{WHISPER}: greedy_generate differs from the launcher's tokens")
+    head = [(cfg.d_model, cfg.vocab, 4)]
+    _generation(WHISPER, generate, calls_pre + head, calls_step + head, 16, card)
+    check_k1_sites(timer, WHISPER, params, prog, calls_pre + head, pol.default, card)
+    del params, prog, extra, generate
+
+    # (b) phi-3-vision at full width, PHI3V_LAYERS of its 32 layers
+    cfg = get(PHI3V).replace(n_layers=PHI3V_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = init_params(cfg, PRNGKey(0), device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.monotonic() - t0
+    ops.reset_counters()
+    t0 = time.monotonic()
+    prog = program_params(params, cfg, pol, PRNGKey(0))
+    torch.cuda.synchronize()
+    t_prog = time.monotonic() - t0
+    launched = path_launches()  # programming: K6 once a slice plane of every weight
+    b, s, new = PHI3V_BATCH, PHI3V_PROMPT, PHI3V_NEW
+    rows = b * (cfg.vision_prefix + s)
+    calls_pre, calls_step = encdec_calls(cfg, rows), encdec_calls(cfg, b)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"{PHI3V} at full width (d_model {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.vision_prefix} patch "
+          f"embeddings), cut: {cfg.n_layers} of 32 layers (the whole model's ~59.6 GB of slices "
+          f"and ~15.3 GB of params leave no room on one card): init {n_params / 1e6:.1f} M params "
+          f"in {t_init:.2f} s; programmed {programmed_byte_size(prog) / 1e6:.1f} MB of crossbar "
+          f"state in {t_prog:.2f} s  [{card}]")
+    prompts = randint(PRNGKey(1), (b, s), 0, cfg.vocab, device="cuda")
+    extra = launcher.side_inputs(cfg, b, "cuda")
+    max_len = cfg.vision_prefix + s + new + 1
+
+    def generate(n):
+        return greedy_generate(params, cfg, prompts, n, policy=pol, max_len=max_len,
+                               compute_dtype=torch.float32, extra_batch=extra, programmed=prog)
+
+    ops.reset_counters()
+    t0 = time.monotonic()
+    out = generate(new)  # the main path's run: its launches are counted
+    torch.cuda.synchronize()
+    t_first = time.monotonic() - t0
+    for name, n in path_launches().items():
+        launched[name] += n
+    n_weights = len(calls_pre) + 1
+    expect_k1, expect_k6 = n_weights * (new + 1), n_weights * n_slices
+    print(f"{PHI3V}: the first generation ({new} new, kernels' first calls) in {t_first:.2f} s; "
+          f"launches of the programming and the generation {launched}; expected K1 {expect_k1}, "
+          f"K6 {expect_k6}  [{card}]")
+    if (launched["fused_sliced_matmul"] != expect_k1 or launched["program_noise"] != expect_k6
+            or launched["fused_sliced_matmul_stack"] or launched["paged_decode_attention"]
+            or launched["paged_chunk_attention"]):
+        raise AssertionError(f"{PHI3V}: launches {launched}")
+    if out.shape != (b, new + 1) or not bool(((out >= 0) & (out < cfg.vocab)).all()):
+        raise AssertionError(f"{PHI3V}: tokens {out}")
+    for name, n in launched.items():
+        counters[name] = counters.get(name, 0) + n
+    head = [(cfg.d_model, cfg.vocab, b)]
+    _generation(PHI3V, generate, calls_pre + head, calls_step + head, new, card)
+    check_k1_sites(timer, PHI3V, params, prog, calls_pre + head, pol.default, card)
+    del params, prog, extra, generate
+    torch.cuda.empty_cache()
+
+    # (d) the smoke configs through the launcher: the kernels against plain
+    for arch in (WHISPER, PHI3V):
+        scfg = get_smoke(arch)
+        ops.reset_counters()
+        on = launcher.main(["--arch", arch] + ENCDEC_SMOKE + ["--kernels", "on"],
+                           collect_logits=True)
+        n_k1 = ops.COUNTERS["fused_sliced_matmul"].count
+        off = launcher.main(["--arch", arch] + ENCDEC_SMOKE + ["--kernels", "off"],
+                            collect_logits=True)
+        fr = 2 * scfg.encoder.n_frames if scfg.encoder is not None else 0
+        rows = 2 * (8 + scfg.vision_prefix)
+        want = (len(encdec_calls(scfg, rows, fr)) + 1) + 2 * (len(encdec_calls(scfg, 2)) + 1)
+        if n_k1 != want or ops.COUNTERS["fused_sliced_matmul"].count != n_k1:
+            raise AssertionError(f"{arch} smoke: K1 {n_k1} launches (expected {want}; "
+                                 "--kernels off launches none)")
+        if not (torch.equal(on[0], off[0]) and torch.equal(on[1], off[1])):
+            raise AssertionError(f"{arch} smoke: kernels {on[0].tolist()} against plain "
+                                 f"{off[0].tolist()}")
+        print(f"{scfg.name} (mem_faithful) in the launcher's default mode: tokens and "
+              f"{on[1].shape[0] * on[1].shape[1]} logit rows bit-equal to --kernels off; K1 "
+              f"{n_k1} launches  [{card}]")
 
 
 def check_circuit(card):
@@ -2491,7 +2775,7 @@ def check_k6(timer, qcfg, summary, card):
 # 3 steps of batch 8 x 128 tokens (loss chunks of 64, remat on, float32)
 TRAIN = ["--policy", "mem_faithful", "--steps", "3", "--batch", "8", "--seq", "128"]
 TRAIN_TOKENS = 8 * 128
-# the kernels-against-plain comparison: 2 of the 24 layers, batch 2 x 16
+# the kernels-against-plain comparison: 1 of the 24 layers, batch 2 x 16
 TRAIN_CUT = ["--policy", "mem_faithful", "--layers", str(CUT_LAYERS), "--batch", "2", "--seq",
              "16", "--steps", "2"]
 LOSS_CHUNK = 64  # launch/train.py's
@@ -2530,7 +2814,7 @@ def train(qcfg, card, counters):
     """``repro_torch.launch.train.main`` at qwen2-0.5b's full width and
     depth under ``mem_faithful``: 3 steps (each loss and grad norm finite,
     K1 and K6 launched by the formula), one more step profiled (idle
-    share, K1 / K6 device ms a step); then, at ``CUT_LAYERS`` layers
+    share, K1 / K6 device ms a step); then, at ``CHECK_LAYERS`` layers
     (full width, the same batch, loss chunks and remat), a resumed run
     (2 steps with ``--ckpt``, then to step 3) bit-equal to 3 steps
     without a break."""
@@ -2594,8 +2878,8 @@ def train(qcfg, card, counters):
     del state
     torch.cuda.empty_cache()
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    whole = TRAIN + ["--layers", str(CUT_LAYERS)]
-    two = [a if a != "3" else "2" for a in TRAIN] + ["--layers", str(CUT_LAYERS)]
+    whole = TRAIN + ["--layers", str(CHECK_LAYERS)]
+    two = [a if a != "3" else "2" for a in TRAIN] + ["--layers", str(CHECK_LAYERS)]
     hist, state = trainer.main(whole, return_state=True)
     t0 = time.monotonic()
     first = trainer.main(two + ["--ckpt", CKPT_DIR])
@@ -2604,7 +2888,7 @@ def train(qcfg, card, counters):
     t2 = time.monotonic()
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     same = first + rest == hist and _leaves_equal(resumed, state)
-    print(f"train resume at {CUT_LAYERS} layers (full width, batch 8 x 128): 2 steps, "
+    print(f"train resume at {CHECK_LAYERS} layers (full width, batch 8 x 128): 2 steps, "
           f"checkpoint, resumed to step 3: losses {first + rest} vs {hist}; the final state "
           f"bit-equal to the uninterrupted run: {same}; the runs {t1 - t0:.1f} s and "
           f"{t2 - t1:.1f} s with the launcher's set-up and checkpoints (each saves one)  "
@@ -2781,6 +3065,8 @@ def hw_training(card):
 # ---------------------------------------------------------------------------
 
 APPS = ("matmul_re", "monte_carlo", "linsolve", "kmeans", "cwt", "train_mlp", "inference_sweep")
+# arguments the apps run with in place of their defaults, on both sides: their plain
+# versions (train_mlp's programming noise, ~100 s at its 120 steps) outlasted the build
 FAITHFUL_APPS = ("matmul_re", "monte_carlo", "linsolve", "kmeans", "cwt")
 
 
@@ -2942,7 +3228,7 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(prog="chip_smoke.py")
-    ap.add_argument("--only", choices=("train", "rwkv6", "moe", "jamba"), default=None,
+    ap.add_argument("--only", choices=("train", "rwkv6", "moe", "jamba", "encdec"), default=None,
                     help="build the kernels and run this phase alone (no kernels line, no "
                          "final line)")
     args = ap.parse_args(argv)
@@ -3001,6 +3287,9 @@ def main(argv=None) -> int:
     if args.only == "jamba":
         timed("jamba", jamba, timer, card, counters)
         return 0
+    if args.only == "encdec":
+        timed("encdec", encdec, timer, card, counters)
+        return 0
     timed("check_k1", check_k1, timer, qcfg, summary)
     timed("check_k1_tiles", check_k1_tiles, timer, summary, card)
     timed("check_k2_k3", check_k2_k3, timer, qcfg, summary, card, floor)
@@ -3024,6 +3313,9 @@ def main(argv=None) -> int:
     timed("moe", moe, timer, card, counters, summary, floor)
     torch.cuda.empty_cache()
     timed("jamba", jamba, timer, card, counters)
+    torch.cuda.empty_cache()
+    timed("encdec", encdec, timer, card, counters)
+    torch.cuda.empty_cache()
     train_phases(timed, timer, qcfg, card, counters)
     counters["sliced_matmul"] = summary["sliced_matmul"]["launches"]
     counters["flash_attention"] = summary["flash_attention"]["launches"]

@@ -11,11 +11,12 @@ from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ("h2o_danube_1p8b", "jamba_v0p1_52b", "kimi_k2_1t_a32b", "qwen2_0p5b",
-            "qwen3_moe_235b_a22b", "rwkv6_1p6b")
+ARCH_IDS = ("h2o_danube_1p8b", "jamba_v0p1_52b", "kimi_k2_1t_a32b", "phi3_vision_4p2b",
+            "qwen2_0p5b", "qwen3_moe_235b_a22b", "rwkv6_1p6b", "whisper_tiny")
 ALIASES = {"h2o-danube-1.8b": "h2o_danube_1p8b", "jamba-v0.1-52b": "jamba_v0p1_52b",
-           "kimi-k2-1t-a32b": "kimi_k2_1t_a32b", "qwen2-0.5b": "qwen2_0p5b",
-           "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b", "rwkv6-1.6b": "rwkv6_1p6b"}
+           "kimi-k2-1t-a32b": "kimi_k2_1t_a32b", "phi-3-vision-4.2b": "phi3_vision_4p2b",
+           "qwen2-0.5b": "qwen2_0p5b", "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+           "rwkv6-1.6b": "rwkv6_1p6b", "whisper-tiny": "whisper_tiny"}
 
 
 def _module(name: str):

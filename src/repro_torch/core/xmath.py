@@ -30,7 +30,10 @@ approximation) and its flush of float32 subnormals to zero
 The optimisers' scalars replay XLA's CPU ``pow`` and ``cos``: calls of
 the C library's ``powf`` / ``cosf`` with results below the float32
 normal range flushed to zero, as XLA's CPU code runs (:func:`pow`,
-:func:`cos`, on host scalars).
+:func:`cos`, on host scalars).  Whisper's sinusoidal positions take the
+same ``sinf`` / ``cosf`` element by element on the host
+(:func:`sin`, and :func:`cos` of a tensor; the callers cache the
+table).
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ import torch
 
 __all__ = [
     "fma", "log", "log1p", "exp", "erf_inv", "tanh", "ftz", "sum_last", "cumsum_last",
-    "logsumexp", "sqrt", "rsqrt", "pow", "cos",
+    "logsumexp", "sqrt", "rsqrt", "pow", "cos", "sin",
 ]
 
 
@@ -400,7 +403,7 @@ def rsqrt(x: torch.Tensor) -> torch.Tensor:
 @functools.lru_cache(maxsize=1)
 def _libm():
     lib = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
-    for name, n in (("powf", 2), ("cosf", 1)):
+    for name, n in (("powf", 2), ("cosf", 1), ("sinf", 1)):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_float
         fn.argtypes = [ctypes.c_float] * n
@@ -423,7 +426,28 @@ def pow(base, t) -> np.float32:  # noqa: A001 - the primitive's name
     return _ftz(_libm().powf(float(_ftz(base)), float(_ftz(t))))
 
 
-def cos(x) -> np.float32:
-    """XLA's CPU float32 ``cos`` of a scalar: the C library's ``cosf``,
-    input and result below the normal range flushed to zero."""
+def cos(x):
+    """XLA's CPU float32 ``cos``: the C library's ``cosf``.  A scalar
+    (input and result below the normal range flushed to zero, as XLA's
+    code for the optimisers' scalars runs) gives a float32 scalar; a
+    tensor gives a tensor on its device, as :func:`sin`."""
+    if isinstance(x, torch.Tensor):
+        return _libm_map("cosf", x)
     return _ftz(_libm().cosf(float(_ftz(x))))
+
+
+def _libm_map(name: str, x: torch.Tensor) -> torch.Tensor:
+    """The C library's float32 ``name`` of every element of ``x``, on the
+    host, returned on ``x``'s device.  No flush: XLA's ``sin`` of a
+    tensor keeps a subnormal input (``sin(1e-40)`` is ``1e-40``)."""
+    fn = getattr(_libm(), name)
+    flat = x.detach().to("cpu", torch.float32).reshape(-1).numpy()
+    out = np.fromiter(map(fn, flat.tolist()), dtype=np.float32, count=flat.size)
+    return torch.from_numpy(out).reshape(x.shape).to(x.device)
+
+
+def sin(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU float32 ``sin`` of a tensor: ``sinf`` element by element
+    on the host, returned on ``x``'s device (~1 us an element: for
+    tables computed once)."""
+    return _libm_map("sinf", x)

@@ -44,9 +44,24 @@ lockstep mode carries in its dense cache::
     python -m repro_torch.launch.serve --arch rwkv6-1.6b --policy mem_faithful
     python -m repro_torch.launch.serve --arch jamba-v0.1-52b --smoke --policy mem_faithful
 
-With ``--requests`` rwkv6 and jamba raise ``NotImplementedError``, as the
-reference does: the continuous-batching engine takes all-attention
-models (the MoE ones included) only.
+The encoder-decoder whisper-tiny and the vision model phi-3-vision-4.2b
+take the reference's side inputs, drawn as the reference draws them:
+``0.02 * normal(PRNGKey(3), (batch, n_frames, d_model))`` frame
+embeddings and ``0.02 * normal(PRNGKey(2), (batch, vision_prefix,
+d_model))`` patch embeddings.  A vision model's dense cache holds its
+patch prefix too: the launcher passes ``max_len = vision_prefix +
+prompt_len + gen + 1`` (the reference's launcher passes none and
+``greedy_generate``'s default, ``prompt_len + gen + 1``, is shorter than
+the prefill, so it raises)::
+
+    python -m repro_torch.launch.serve --arch whisper-tiny --policy mem_faithful
+    python -m repro_torch.launch.serve --arch phi-3-vision-4.2b --layers 16 \
+        --policy mem_faithful
+
+With ``--requests`` rwkv6, jamba, whisper and phi-3-vision raise
+``NotImplementedError``, as the reference does: the continuous-batching
+engine takes all-attention decoders without side inputs (the MoE ones
+included) only.
 """
 from __future__ import annotations
 
@@ -59,7 +74,7 @@ import torch
 
 from repro_torch import configs as arch_configs
 from repro_torch.core import DriftModel
-from repro_torch.core.prng import PRNGKey, randint
+from repro_torch.core.prng import PRNGKey, normal, randint
 from repro_torch.launch.dryrun import make_policy
 from repro_torch.models import init_params, program_params, programmed_byte_size
 from repro_torch.serve import Request, SamplingParams, ServeConfig, ServeLoop, greedy_generate
@@ -169,8 +184,6 @@ def main(argv=None, *, collect_logits: bool = False):
     cfg = arch_configs.get_smoke(args.arch) if args.smoke else arch_configs.get(args.arch)
     if args.layers is not None:
         cfg = cfg.replace(n_layers=args.layers)
-    if cfg.vision_prefix or cfg.encoder is not None:
-        raise NotImplementedError(f"{cfg.family} side inputs are not ported to repro_torch yet")
     policy = make_policy(args.policy)
     if args.requests:
         policy = _row_independent(policy)
@@ -178,6 +191,9 @@ def main(argv=None, *, collect_logits: bool = False):
         policy = _with_drift(policy, args.drift_nu, args.drift_t0)
     params = init_params(cfg, PRNGKey(0), device=dev)
     prompts = randint(PRNGKey(1), (args.batch, args.prompt_len), 0, cfg.vocab, device=dev)
+    extra, max_len = side_inputs(cfg, args.batch, dev), None
+    if cfg.vision_prefix:
+        max_len = cfg.vision_prefix + args.prompt_len + args.gen + 1
     programmed = None
     if not args.per_call and policy.enabled:
         t0 = time.time()
@@ -189,9 +205,9 @@ def main(argv=None, *, collect_logits: bool = False):
         return _serve_continuous(args, cfg, policy, params, programmed, kernels, collect_logits)
     t0 = time.time()
     out = greedy_generate(
-        params, cfg, prompts, args.gen, policy=policy, compute_dtype=torch.float32,
-        programmed=programmed, weight_stationary=not args.per_call, kernels=kernels,
-        collect_logits=collect_logits,
+        params, cfg, prompts, args.gen, policy=policy, max_len=max_len,
+        compute_dtype=torch.float32, extra_batch=extra or None, programmed=programmed,
+        weight_stationary=not args.per_call, kernels=kernels, collect_logits=collect_logits,
     )
     _sync(dev)
     dt = time.time() - t0
@@ -201,6 +217,21 @@ def main(argv=None, *, collect_logits: bool = False):
           f"({args.batch * args.gen / dt:.1f} tok/s, {mode})")
     print("sample:", tokens[0][:16].tolist())
     return out
+
+
+def side_inputs(cfg, batch: int, device) -> dict:
+    """The reference launcher's side inputs of ``cfg``: a vision model's
+    ``patch_embeds`` (batch, vision_prefix, d) from ``PRNGKey(2)``, an
+    encoder-decoder's ``frames`` (batch, n_frames, d) from ``PRNGKey(3)``,
+    each ``0.02 * normal``, float32 on ``device``; empty for the rest."""
+    extra = {}
+    if cfg.vision_prefix:
+        extra["patch_embeds"] = 0.02 * normal(
+            PRNGKey(2), (batch, cfg.vision_prefix, cfg.d_model), device=device)
+    if cfg.encoder is not None:
+        extra["frames"] = 0.02 * normal(
+            PRNGKey(3), (batch, cfg.encoder.n_frames, cfg.d_model), device=device)
+    return extra
 
 
 def _row_independent(policy):

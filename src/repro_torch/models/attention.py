@@ -1,8 +1,10 @@
 """Attention: GQA + RoPE + qk-norm + sliding window over a dense or a
 paged KV cache (port of ``repro/models/attention.py``).
 
-Dense paths (``forward`` / ``greedy_generate``), plain PyTorch as the
-reference's are plain jnp, outside any kernel:
+Dense paths (``forward`` / ``greedy_generate``; the whisper encoder's
+non-causal self-attention and its decoder's cross-attention over the
+encoder's frames included), plain PyTorch as the reference's are plain
+jnp, outside any kernel:
 
 * :func:`attention_dense` — the full score matrix (up to 1,024 keys);
 * :func:`attention_chunked` — online softmax over 512-key chunks, with
@@ -223,32 +225,40 @@ def init_kv_cache(cfg, batch, max_len, dtype=torch.bfloat16, layers=None, device
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def attention_block(p, x, cfg, *, policy, rng, positions, name, dense_threshold=1024,
-                    attn_schedule="masked", prepared=None, kernels=True):
-    """Causal self-attention block on a sequence (train / prefill): x (B,
-    S, d) -> (y, (k, v)), the roped K / V for the serving cache.  Up to
-    ``dense_threshold`` keys the score matrix is formed whole, above it
-    :func:`attention_chunked` runs with ``attn_schedule``.  (The
-    reference's cross-attention input ``kv_in`` and non-causal encoder
-    blocks belong to the encoder-decoder family, not ported.)"""
+def attention_block(p, x, cfg, *, policy, rng, positions, name, kv_in=None, causal=True,
+                    dense_threshold=1024, attn_schedule="masked", prepared=None, kernels=True):
+    """Attention block on a sequence (train / prefill): x (B, S, d) ->
+    (y, (k, v)), the roped K / V for the serving cache.  ``kv_in`` (k, v),
+    each (B, Skv, KV, hd), is a cross-attention's keys and values (the
+    whisper decoder's over the encoder's frames): the K / V projections,
+    ``qk_norm`` on K and RoPE are skipped.  ``causal=False`` for an
+    encoder's self-attention and a cross-attention.  Up to
+    ``dense_threshold`` keys and queries the score matrix is formed whole,
+    above it :func:`attention_chunked` runs with ``attn_schedule``."""
     b, s, d = x.shape
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     kw = dict(policy=policy, rng=rng, kernels=kernels)
-    q = dense(p["q_proj"], x, name=f"{name}.q", prepared=pget(prepared, "q_proj"), **kw)
-    k = dense(p["k_proj"], x, name=f"{name}.k", prepared=pget(prepared, "k_proj"), **kw)
-    v = dense(p["v_proj"], x, name=f"{name}.v", prepared=pget(prepared, "v_proj"), **kw)
-    q, k, v = _split_heads(q, nh, hd), _split_heads(k, nkv, hd), _split_heads(v, nkv, hd)
+    q = _split_heads(dense(p["q_proj"], x, name=f"{name}.q", prepared=pget(prepared, "q_proj"),
+                           **kw), nh, hd)
+    if kv_in is None:
+        k = dense(p["k_proj"], x, name=f"{name}.k", prepared=pget(prepared, "k_proj"), **kw)
+        v = dense(p["v_proj"], x, name=f"{name}.v", prepared=pget(prepared, "v_proj"), **kw)
+        k, v = _split_heads(k, nkv, hd), _split_heads(v, nkv, hd)
+    else:
+        k, v = kv_in
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"]["scale"])
-        k = rms_norm(k, p["k_norm"]["scale"])
-    if cfg.rope_theta > 0:
+        if kv_in is None:
+            k = rms_norm(k, p["k_norm"]["scale"])
+    if kv_in is None and cfg.rope_theta > 0:
         cos, sin = rope(positions, hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    if s <= dense_threshold:
-        out = attention_dense(q, k, v, window=cfg.swa_window)
+    if max(s, k.shape[1]) <= dense_threshold:
+        out = attention_dense(q, k, v, window=cfg.swa_window, causal=causal)
     else:
-        out = attention_chunked(q, k, v, window=cfg.swa_window, schedule=attn_schedule)
+        out = attention_chunked(q, k, v, window=cfg.swa_window, causal=causal,
+                                schedule=attn_schedule)
     y = dense(p["o_proj"], out.reshape(b, s, nh * hd), name=f"{name}.o",
               prepared=pget(prepared, "o_proj"), **kw)
     return y, (k, v)
@@ -283,7 +293,7 @@ def _dense_token_write(cache, pos, val, active):
 
 
 def decode_attention_block(
-    p, x1, cfg, *, policy, rng, cache_k, cache_v, pos, name, prepared=None,
+    p, x1, cfg, *, policy, rng, cache_k, cache_v, pos, name, cross=False, prepared=None,
     active=None, block_tables=None, kernels=True,
 ):
     """One-token attention block against the cache, dense or paged.
@@ -295,8 +305,10 @@ def decode_attention_block(
     :func:`attention_decode`.  Paged: cache_k/v are the layer's pools and
     ``block_tables`` (B, nb) maps slots to blocks; inactive rows write to
     the trash block, and the query attends through K2.  The token's K/V
-    are written first.  Returns (y, cache_k, cache_v), the cache updated
-    in place.
+    are written first.  ``cross`` (the whisper decoder's cross-attention,
+    dense): cache_k/v are the encoder's K / V, nothing is projected or
+    written, and the query attends over keys ``<= pos`` without a window.
+    Returns (y, cache_k, cache_v), the cache updated in place.
     """
     b, d = x1.shape
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -305,6 +317,11 @@ def decode_attention_block(
     q = q.reshape(b, nh, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"]["scale"])
+    if cross:
+        out = attention_decode(q, cache_k, cache_v, pos)
+        y = dense(p["o_proj"], out.reshape(b, nh * hd), name=f"{name}.o",
+                  prepared=pget(prepared, "o_proj"), **kw)
+        return y, cache_k, cache_v
     k1 = dense(p["k_proj"], x1, name=f"{name}.k", prepared=pget(prepared, "k_proj"), **kw)
     v1 = dense(p["v_proj"], x1, name=f"{name}.v", prepared=pget(prepared, "v_proj"), **kw)
     k1 = k1.reshape(b, nkv, hd)

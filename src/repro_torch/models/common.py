@@ -10,9 +10,11 @@ exactly the reference's pytree layout.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import xmath
 from repro_torch.core.layers import MemPolicy, layer_key, mem_linear
 from repro_torch.core.quant import div
 from repro_torch.core.prng import uniform
@@ -24,6 +26,7 @@ __all__ = [
     "layer_norm",
     "norm",
     "activation",
+    "gelu",
     "rope",
     "apply_rope",
     "make_dense_params",
@@ -235,11 +238,26 @@ def norm(x, p, kind: str):
     return layer_norm(x, p["scale"], p["bias"])
 
 
+_SQRT_2_OVER_PI = float(np.float32(np.sqrt(2 / np.pi)))
+_GELU_C = float(np.float32(0.044715))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (``approximate=True``, its default) as XLA's CPU code
+    computes it: ``x * ((1 + tanh(sqrt(2/pi) * (x + 0.044715 x**3))) *
+    0.5)`` with ``x**3 = (x * x) * x``, the ``0.044715 x**3 + x`` one fused
+    multiply-add and XLA's ``tanh`` (:func:`~repro_torch.core.xmath.tanh`).
+    Bit for bit the jitted reference on float32 (no gradient rule)."""
+    x3 = x * x * x
+    inner = xmath.fma(x3, _GELU_C, x, wait=False)
+    return x * ((xmath.tanh(inner * _SQRT_2_OVER_PI) + 1.0) * 0.5)
+
+
 def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "silu":
         return F.silu(x)
     if kind == "gelu":
-        return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+        return gelu(x)
     if kind == "relu2":
         r = F.relu(x)
         return r * r

@@ -18,13 +18,25 @@ that skips the vocab head on non-final prefill chunks is a host ``if``.
 Caches are updated in place (the reference donates them).  The layer
 key chain is the reference's:
 ``fold_in(fold_in(rng, segment), step)``, a hybrid's step being a whole
-group.  Vision prefixes and encoders raise ``NotImplementedError``; the
-paged cache, chunked prefill and speculative verify take homogeneous
-attention layers (with or without MoE) only, as the reference's.
-:func:`loss_fn` (the trainer) takes attention layers with the MLP only:
-RWKV6, Mamba and MoE layers serve but are not ported to training yet.
+group.  A vision model (phi-3-vision) takes ``batch["patch_embeds"]``
+ahead of its token embeddings.  The encoder-decoder whisper runs its
+encoder over ``batch["frames"]`` (the stubbed frontend's embeddings plus
+sinusoidal positions, :func:`_sinusoid`), then its decoder layers, each a
+causal self-attention block and a cross-attention over the encoder's
+output, with the reference's keys: ``fold_in(rng, 1000 + i)`` /
+``fold_in(rng, 2000 + i)`` for encoder layer ``i``'s attention / MLP and
+``fold_in(rng, i)`` for decoder layer ``i`` and its cross-attention;
+its dense cache carries ``cross_kv``, the encoder's K / V of every
+decoder layer.  The paged cache, chunked prefill and speculative verify
+take homogeneous decoder-only attention layers (with or without MoE)
+only, as the reference's.  :func:`loss_fn` (the trainer) takes
+decoder-only attention layers with the MLP only: RWKV6, Mamba, MoE,
+encoder-decoder and vision-prefixed models serve but are not ported to
+training yet.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +46,7 @@ from repro_torch.core import xmath
 from repro_torch.core.layers import DIGITAL, MemPolicy
 from repro_torch.core.prng import PRNGKey, fold_in, split
 
+from .attention import attention_block, decode_attention_block, init_attn_params
 from .common import (
     dense,
     layer_slice,
@@ -49,6 +62,7 @@ from .common import (
 from .config import ArchConfig
 from .ssm import init_mamba_state, init_rwkv6_state
 from .transformer import (
+    _ffn_forward,
     block_chunk,
     block_decode,
     block_forward,
@@ -110,13 +124,67 @@ def init_params(cfg: ArchConfig, key=0, dtype=torch.float32, device="cuda"):
             lambda i: init_block_params(seg_keys[i], cfg, tmpl, dtype, device),
             steps,
         )
+    if cfg.encoder is not None:
+        params["encoder"] = _init_encoder(keys[3], cfg, dtype, device)
+        params["cross"] = _init_cross_stack(keys[4], cfg, dtype, device)
     return params
 
 
+def _init_encoder(key, cfg, dtype, device):
+    """The encoder's layers (decoder layer 0's structure) from the first
+    ``n_layers`` keys of ``split(key, n_layers + 1)``, and its final
+    norm."""
+    ks = split(key, cfg.encoder.n_layers + 1)
+    return {
+        "blocks": stack_layers(lambda i: init_block_params(ks[i], cfg, 0, dtype, device),
+                               cfg.encoder.n_layers),
+        "final_norm": make_norm_params(cfg.d_model, cfg.norm, dtype, device),
+    }
+
+
+def _init_cross_stack(key, cfg, dtype, device):
+    """Every decoder layer's cross-attention (its projections and its
+    norm), stacked, from ``split(key, n_layers)``."""
+    ks = split(key, cfg.n_layers)
+
+    def one(i):
+        p = init_attn_params(ks[i], cfg, dtype, device)
+        p["norm"] = make_norm_params(cfg.d_model, cfg.norm, dtype, device)
+        return p
+
+    return stack_layers(one, cfg.n_layers)
+
+
 def _embed_inputs(params, cfg, batch, compute_dtype):
-    if cfg.vision_prefix or "patch_embeds" in batch:
-        raise NotImplementedError("vision prefixes are not ported to repro_torch yet")
-    return take_rows(params["embed"]["w"].to(compute_dtype), batch["tokens"])
+    """The token embeddings (B, S, d), behind a vision model's
+    ``batch["patch_embeds"]`` (B, P, d) cast to ``compute_dtype``."""
+    x = take_rows(params["embed"]["w"].to(compute_dtype), batch["tokens"])
+    if cfg.vision_prefix and "patch_embeds" in batch:
+        x = torch.cat([batch["patch_embeds"].to(compute_dtype), x], dim=1)
+    return x
+
+
+@functools.lru_cache(maxsize=16)
+def _sinusoid_table(n: int, d: int, device: torch.device) -> torch.Tensor:
+    """The sinusoid table (n, d) float32 on ``device``: row ``p`` is
+    ``[sin(p * f), cos(p * f)]`` over the ``d // 2`` frequencies ``f =
+    exp(-log(10000) * j / (d // 2))``, each value the reference's bits
+    (XLA's ``log`` / ``exp`` and the C library's ``sinf`` / ``cosf``,
+    :mod:`~repro_torch.core.xmath`), computed on the host (~1 us an
+    element) once per length, width and device."""
+    half = d // 2
+    neg_log = -xmath.log(torch.tensor([10000.0]))
+    freq = xmath.exp(neg_log * torch.arange(half, dtype=torch.float32) / float(half))
+    ang = torch.arange(n, dtype=torch.float32)[:, None] * freq
+    return torch.cat([xmath.sin(ang), xmath.cos(ang)], dim=-1).to(device)
+
+
+def _sinusoid(positions: torch.Tensor, d: int, n: int) -> torch.Tensor:
+    """The reference's ``_sinusoid``: sinusoidal embeddings (..., d)
+    float32 of integer ``positions`` (any shape), each below ``n`` (the
+    frames, the prompt or the cache; read on the host, the positions
+    would wait for the device), gathered from :func:`_sinusoid_table`."""
+    return _sinusoid_table(n, d, positions.device)[positions.long()]
 
 
 def _remat(fn, *args):
@@ -156,13 +224,15 @@ def forward(
     ``remat`` (``mode="train"``, gradients on) each layer is recomputed
     in the backward pass instead of keeping its activations."""
     rng = PRNGKey(0) if rng is None else rng
+    remat = remat and mode == "train" and torch.is_grad_enabled()
     if cfg.encoder is not None:
-        raise NotImplementedError("encoder-decoder models are not ported to repro_torch yet")
+        return _encdec_forward(params, cfg, batch, policy=policy, rng=rng, mode=mode,
+                               compute_dtype=compute_dtype, programmed=programmed,
+                               kernels=kernels)
     x = _embed_inputs(params, cfg, batch, compute_dtype)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     prog_blocks = pget(programmed, "blocks")
-    remat = remat and mode == "train" and torch.is_grad_enabled()
     all_states = {}
     for si, (start, steps, tmpl) in enumerate(segments(cfg)):
         seg_p = params["blocks"][f"seg{si}"]
@@ -208,8 +278,14 @@ def loss_fn(
     and the picked logit, and with ``remat`` is recomputed in the
     backward pass.  The sum over chunks and the count run in order from
     zero, then ``tot / max(cnt, 1)``.  Raises ``NotImplementedError`` for
-    RWKV6, Mamba and MoE layers (their gradients are not held against the
-    reference's)."""
+    RWKV6, Mamba and MoE layers, encoder-decoder and vision-prefixed
+    models (their gradients are not held against the reference's)."""
+    if cfg.encoder is not None:
+        raise NotImplementedError("training encoder-decoder models is not ported to "
+                                  "repro_torch yet")
+    if cfg.vision_prefix:
+        raise NotImplementedError("training vision-prefixed models is not ported to "
+                                  "repro_torch yet")
     kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
     if any(kind == "ssm" for kind, _ in kinds):
         raise NotImplementedError("training ssm layers is not ported to repro_torch yet")
@@ -284,12 +360,17 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     """The DENSE serving cache: ``pos`` (batch,) int32 and per segment
     ``{"k", "v"}`` of shape (steps, batch, max_len, KV, hd), or for
     recurrent layers their state whatever ``max_len`` (RWKV6 ``{"s",
-    "x_prev"}``, Mamba ``{"h", "conv"}``; a hybrid's ``{"l{j}": ...}``)."""
-    if cfg.encoder is not None:
-        raise NotImplementedError("encoder-decoder models are not ported to repro_torch yet")
+    "x_prev"}``, Mamba ``{"h", "conv"}``; a hybrid's ``{"l{j}": ...}``).
+    An encoder-decoder's cache also holds ``cross_kv``: ``{"k", "v"}``,
+    each (n_layers, batch, n_frames, KV, hd), zeros until a prefill fills
+    them."""
     cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=device), "blocks": {}}
     for si, (start, steps, tmpl) in enumerate(segments(cfg)):
         cache["blocks"][f"seg{si}"] = _seg_cache(cfg, tmpl, steps, batch, max_len, dtype, device)
+    if cfg.encoder is not None:
+        shape = (cfg.n_layers, batch, cfg.encoder.n_frames, cfg.n_kv_heads, cfg.head_dim)
+        cache["cross_kv"] = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                             "v": torch.zeros(shape, dtype=dtype, device=device)}
     return cache
 
 
@@ -372,8 +453,14 @@ def decode_step(
     cache).  Rows where ``active`` is False neither advance ``pos`` nor
     touch live KV or recurrent state.  The cache — the dense
     :func:`init_cache` tree or the paged :func:`init_paged_cache` tree,
-    told apart by its ``block_tables`` — is updated in place."""
+    told apart by its ``block_tables`` — is updated in place.  An
+    encoder-decoder's step attends over the cache's ``cross_kv`` too
+    (dense cache only)."""
     rng = PRNGKey(0) if rng is None else rng
+    if cfg.encoder is not None:
+        return _encdec_decode(params, cfg, cache, tokens, policy=policy, rng=rng,
+                              compute_dtype=compute_dtype, programmed=programmed,
+                              active=active, kernels=kernels)
     block_tables = cache.get("block_tables")
     x1 = params["embed"]["w"].to(compute_dtype)[tokens.long()]
     pos = cache["pos"]
@@ -475,4 +562,120 @@ def decode_verify_step(
         params["lm_head"], x, name="lm_head", policy=policy, rng=rng,
         prepared=pget(programmed, "lm_head"), kernels=kernels,
     ).to(torch.float32)
+    return logits, cache
+
+
+def _encoder_layer(p, x, cfg, *, policy, rng, idx, positions, prepared=None, kernels=True):
+    """Encoder layer ``idx`` on x (B, F, d): the non-causal self-attention
+    block (``enc.attn.*``, key ``fold_in(rng, 1000 + idx)``), then the MLP
+    (``enc.mlp.*``, key ``fold_in(rng, 2000 + idx)``), each behind its
+    norm and added to x."""
+    h = norm(x, p["norm1"], cfg.norm)
+    y, _ = attention_block(p["attn"], h, cfg, policy=policy, rng=fold_in(rng, 1000 + idx),
+                           positions=positions, name="enc.attn", causal=False,
+                           prepared=pget(prepared, "attn"), kernels=kernels)
+    x = x + y
+    h = norm(x, p["norm2"], cfg.norm)
+    return x + _ffn_forward(p, h, cfg, policy=policy, rng=fold_in(rng, 2000 + idx), name="enc",
+                            prepared=prepared, kernels=kernels)
+
+
+def _encdec_forward(params, cfg, batch, *, policy, rng, mode, compute_dtype, programmed,
+                    kernels):
+    """The whisper encoder-decoder on ``batch["frames"]`` (B, F, d) and
+    ``batch["tokens"]`` (B, S): the encoder's non-causal layers over the
+    frames plus their sinusoid, its final norm, then each decoder layer
+    (causal self-attention block, then cross-attention over the encoder's
+    output, whose K / V it projects) over the tokens' embeddings plus
+    theirs.  Returns the decoder's hidden states after the final norm;
+    with ``mode == "prefill"`` also ``{"seg0": {"k", "v"}, "cross_kv":
+    {"k", "v"}}``, the self-attention K / V (n_layers, B, S, KV, hd) and
+    the cross-attention's (n_layers, B, F, KV, hd)."""
+    frames = batch["frames"].to(compute_dtype)
+    b, f, d = frames.shape
+    dev = frames.device
+    nkv, hd = cfg.n_kv_heads, cfg.head_dim
+    pos_e = torch.arange(f, device=dev).expand(b, f)
+    x = frames + _sinusoid(pos_e, d, f).to(compute_dtype)
+    nenc = cfg.encoder.n_layers
+    prog_enc = pget(pget(programmed, "encoder"), "blocks")
+    for idx, p_l in enumerate(unstack_layers(params["encoder"]["blocks"], nenc)):
+        x = _encoder_layer(p_l, x, cfg, policy=policy, rng=rng, idx=idx, positions=pos_e,
+                           kernels=kernels,
+                           prepared=None if prog_enc is None else layer_slice(prog_enc, idx))
+    enc_out = norm(x, params["encoder"]["final_norm"], cfg.norm)
+
+    tokens = batch["tokens"]
+    bt, s = tokens.shape
+    xd = take_rows(params["embed"]["w"].to(compute_dtype), tokens)
+    pos_d = torch.arange(s, device=dev).expand(bt, s)
+    xd = xd + _sinusoid(pos_d, d, s).to(compute_dtype)
+    prog_seg0 = pget(pget(programmed, "blocks"), "seg0")
+    prog_cross = pget(programmed, "cross")
+    n = cfg.n_layers
+    layers = zip(unstack_layers(params["blocks"]["seg0"], n), unstack_layers(params["cross"], n))
+    states, cross_k, cross_v = [], [], []
+    for idx, (p_l, p_x) in enumerate(layers):
+        rng_l = fold_in(rng, idx)
+        prog_l = None if prog_seg0 is None else layer_slice(prog_seg0, idx)
+        prog_x = None if prog_cross is None else layer_slice(prog_cross, idx)
+        xd, st = block_forward(p_l, xd, cfg, 0, policy=policy, rng=rng_l, positions=pos_d,
+                               prepared=prog_l, kernels=kernels)
+        kw = dict(policy=policy, rng=rng_l, kernels=kernels)
+        h = norm(xd, p_x["norm"], cfg.norm)
+        kx = dense(p_x["k_proj"], enc_out, name="dec.cross.k",
+                   prepared=pget(prog_x, "k_proj"), **kw).reshape(b, f, nkv, hd)
+        vx = dense(p_x["v_proj"], enc_out, name="dec.cross.v",
+                   prepared=pget(prog_x, "v_proj"), **kw).reshape(b, f, nkv, hd)
+        y, _ = attention_block(p_x, h, cfg, positions=pos_d, name="dec.cross", kv_in=(kx, vx),
+                               causal=False, prepared=prog_x, **kw)
+        xd = xd + y
+        if mode == "prefill":
+            states.append(st)
+            cross_k.append(kx)
+            cross_v.append(vx)
+    xd = norm(xd, params["final_norm"], cfg.norm)
+    if mode == "prefill":
+        return xd, {"seg0": _stack_states(states),
+                    "cross_kv": {"k": torch.stack(cross_k), "v": torch.stack(cross_v)}}
+    return xd
+
+
+def _encdec_decode(params, cfg, cache, tokens, *, policy, rng, compute_dtype, programmed,
+                   active, kernels):
+    """One decode step of the whisper decoder over the dense cache: the
+    token's embedding plus its position's sinusoid, then per decoder layer
+    the self-attention block (its K / V written into the cache) and the
+    cross-attention over ``cache["cross_kv"]``, every frame a key; the
+    head.  Returns (logits (B, V) float32, cache), ``pos`` advanced where
+    ``active``."""
+    x1 = params["embed"]["w"].to(compute_dtype)[tokens.long()]
+    pos = cache["pos"]
+    seg_c = cache["blocks"]["seg0"]
+    x1 = x1 + _sinusoid(pos, cfg.d_model, seg_c["k"].shape[2]).to(compute_dtype)
+    inc = 1 if active is None else active.to(torch.int32)
+    enc_pos = torch.full_like(pos, cfg.encoder.n_frames - 1)
+    prog_seg0 = pget(pget(programmed, "blocks"), "seg0")
+    prog_cross = pget(programmed, "cross")
+    for idx in range(cfg.n_layers):
+        rng_l = fold_in(rng, idx)
+        x1, _ = block_decode(
+            layer_slice(params["blocks"]["seg0"], idx), x1, cfg, 0, policy=policy, rng=rng_l,
+            pos=pos, state=layer_slice(seg_c, idx), active=active, kernels=kernels,
+            prepared=None if prog_seg0 is None else layer_slice(prog_seg0, idx),
+        )
+        p_x = layer_slice(params["cross"], idx)
+        y, _, _ = decode_attention_block(
+            p_x, norm(x1, p_x["norm"], cfg.norm), cfg, policy=policy, rng=rng_l,
+            cache_k=cache["cross_kv"]["k"][idx], cache_v=cache["cross_kv"]["v"][idx],
+            pos=enc_pos, name="dec.cross", cross=True, kernels=kernels,
+            prepared=None if prog_cross is None else layer_slice(prog_cross, idx),
+        )
+        x1 = x1 + y
+    x1 = norm(x1, params["final_norm"], cfg.norm)
+    logits = dense(
+        params["lm_head"], x1, name="lm_head", policy=policy, rng=rng,
+        prepared=pget(programmed, "lm_head"), kernels=kernels,
+    ).to(torch.float32)
+    cache["pos"] = pos + inc
     return logits, cache

@@ -1,5 +1,5 @@
 """Program-once weight-stationary inference (port of
-``repro/models/programmed.py`` for decoder models).
+``repro/models/programmed.py``).
 
 :func:`program_params` walks the model once, resolves each logical layer
 name through the ``MemPolicy`` and materialises the programmed state
@@ -10,9 +10,9 @@ projection (:func:`repro_torch.models.moe.program_experts`).  Layer
 names and the key chain mirror :func:`repro_torch.models.model.decode_step`
 (``fold_in(fold_in(rng, segment), step)`` then ``layer_key(·, name)``;
 every layer of a hybrid group takes the group's key, and names carry no
-layer index, so a group's Mamba layers draw the same noise), so
-programming is a pure function of ``(params, cfg, policy, rng)``;
-programming runs on the params' device.
+layer index, so a group's Mamba layers draw the same noise; an encoder-decoder's
+keys are :func:`_prog_encdec`'s), so programming is a pure function of
+``(params, cfg, policy, rng)``; programming runs on the params' device.
 """
 from __future__ import annotations
 
@@ -44,6 +44,17 @@ _MAMBA_PROJ = (("in_proj", "in"), ("in_proj_z", "z"), ("x_proj", "xp"), ("dt_pro
                ("out_proj", "out"))
 
 
+def _prog_table(p: dict, table, name: str, rng, policy, t_prog, kernels) -> dict:
+    """The projections ``table`` lists of ``p``, ``{name}.{suffix}`` each."""
+    return {pk: _prog_dense(p[pk], f"{name}.{suffix}", rng, policy, t_prog, kernels)
+            for pk, suffix in table}
+
+
+def _prog_mlp(p: dict, name: str, rng, policy, t_prog, kernels) -> dict:
+    return _prog_table(p, (("wi", "mlp.wi"), ("wg", "mlp.wg"), ("wo", "mlp.wo")), name, rng,
+                       policy, t_prog, kernels)
+
+
 def _prog_layer(p: dict, cfg: ArchConfig, layer_idx: int, rng, policy, t_prog, kernels):
     """One layer, named ``L.{kind}`` as the forward and decode steps name
     it: the name is part of every programming-noise key."""
@@ -51,17 +62,36 @@ def _prog_layer(p: dict, cfg: ArchConfig, layer_idx: int, rng, policy, t_prog, k
     name = f"L.{kind}"
     table = (_ATTN_PROJ if kind == "attn" else
              _RWKV6_PROJ if cfg.ssm.kind == "rwkv6" else _MAMBA_PROJ)
-    mixer = {
-        pk: _prog_dense(p[kind][pk], f"{name}.{suffix}", rng, policy, t_prog, kernels)
-        for pk, suffix in table
-    }
+    mixer = _prog_table(p[kind], table, name, rng, policy, t_prog, kernels)
     if "moe" in p:
         return {kind: mixer, "moe": _prog_moe(p["moe"], name, rng, policy, t_prog, kernels)}
-    mlp = {
-        k: _prog_dense(p["mlp"][k], f"{name}.mlp.{k}", rng, policy, t_prog, kernels)
-        for k in ("wi", "wg", "wo")
+    return {kind: mixer, "mlp": _prog_mlp(p["mlp"], name, rng, policy, t_prog, kernels)}
+
+
+def _prog_encdec(params, cfg: ArchConfig, rng, policy, t_prog, kernels) -> dict:
+    """An encoder-decoder (the reference's ``_prog_encdec``): encoder layer
+    ``i``'s attention (``enc.attn.*``) from ``fold_in(rng, 1000 + i)`` and
+    its MLP (``enc.mlp.*``) from ``fold_in(rng, 2000 + i)``; decoder layer
+    ``i`` (``L.attn.*``, ``L.attn.mlp.*``) and its cross-attention
+    (``dec.cross.*``) from ``fold_in(rng, i)``, no segment fold; the head
+    from ``rng``."""
+    enc = params["encoder"]["blocks"]
+    seg0, cross = params["blocks"]["seg0"], params["cross"]
+    return {
+        "encoder": {"blocks": stack_layers(lambda i: {
+            "attn": _prog_table(layer_slice(enc, i)["attn"], _ATTN_PROJ, "enc.attn",
+                                fold_in(rng, 1000 + i), policy, t_prog, kernels),
+            "mlp": _prog_mlp(layer_slice(enc, i)["mlp"], "enc", fold_in(rng, 2000 + i), policy,
+                             t_prog, kernels),
+        }, cfg.encoder.n_layers)},
+        "blocks": {"seg0": stack_layers(
+            lambda i: _prog_block(layer_slice(seg0, i), cfg, 0, fold_in(rng, i), policy, t_prog,
+                                  kernels), cfg.n_layers)},
+        "cross": stack_layers(
+            lambda i: _prog_table(layer_slice(cross, i), _ATTN_PROJ, "dec.cross", fold_in(rng, i),
+                                  policy, t_prog, kernels), cfg.n_layers),
+        "lm_head": _prog_dense(params["lm_head"], "lm_head", rng, policy, t_prog, kernels),
     }
-    return {kind: mixer, "mlp": mlp}
 
 
 def _prog_block(p: dict, cfg: ArchConfig, template_idx: int, rng, policy, t_prog, kernels):
@@ -101,6 +131,8 @@ def program_params(
     rng = PRNGKey(0) if rng is None else rng
     if policy is None or not policy.enabled:
         return None
+    if cfg.encoder is not None:
+        return _prog_encdec(params, cfg, rng, policy, t_prog, kernels)
     prog = {"blocks": {}}
     for si, (start, steps, tmpl) in enumerate(segments(cfg)):
         seg_p = params["blocks"][f"seg{si}"]

@@ -48,14 +48,27 @@ def _cache_from_prefill(states, batch, s_prefill, max_len, dtype, device):
     """The dense serving cache from the prefill's per-layer states: K / V
     cast to ``dtype`` and zero-padded along the length axis to
     ``max_len``; recurrent (RWKV6, Mamba) states pass through as they
-    are."""
+    are; an encoder-decoder's ``cross_kv`` (the encoder's K / V of every
+    decoder layer) is cast to ``dtype``.  A ``max_len`` shorter than the
+    prefill raises ``ValueError`` where there are K / V to pad, as the
+    reference's ``jnp.pad`` does (a negative pad would crop them)."""
     def pad(tree):
-        return {k: pad(x) if isinstance(x, dict) else
-                torch.nn.functional.pad(x.to(dtype), (0, 0, 0, 0, 0, max_len - x.shape[2]))
-                if k in ("k", "v") else x for k, x in tree.items()}
+        return {k: pad(x) if isinstance(x, dict) else pad_kv(x) if k in ("k", "v") else x
+                for k, x in tree.items()}
 
-    return {"pos": torch.full((batch,), s_prefill, dtype=torch.int32, device=device),
-            "blocks": pad(states)}
+    def pad_kv(x):
+        if max_len < x.shape[2]:
+            raise ValueError(f"max_len {max_len} is shorter than the prefill's {x.shape[2]} "
+                             "positions")
+        return torch.nn.functional.pad(x.to(dtype), (0, 0, 0, 0, 0, max_len - x.shape[2]))
+
+    states = dict(states)
+    cross = states.pop("cross_kv", None)
+    cache = {"pos": torch.full((batch,), s_prefill, dtype=torch.int32, device=device),
+             "blocks": pad(states)}
+    if cross is not None:
+        cache["cross_kv"] = {k: x.to(dtype) for k, x in cross.items()}
+    return cache
 
 
 def make_prefill_step(

@@ -754,3 +754,41 @@ def test_k1_row_groups_bitwise(card, adc_mode):
     assert torch.equal(got, whole)
     for i in range(e):
         assert torch.equal(got[i], singles[i]), i
+
+
+@pytest.mark.parametrize("adc_mode", ["dynamic", "dynamic_row"])
+def test_fused_kernel_ragged_vocab_head_bitwise(card, adc_mode):
+    """K1 at whisper-tiny's vocab head (384 x 51,865: the weight is
+    programmed padded to 406 whole 128-column tiles, the output cut back to
+    51,865 columns) equals its plain version bit for bit."""
+    from repro_torch.core.dpe import program_weight
+    from repro_torch.core.layers import mem_linear
+
+    cfg = DPEConfig(input_spec=INT8, weight_spec=INT8, array_size=(128, 128), mode="faithful",
+                    store_dtype="bf16", backend="auto", adc_mode=adc_mode)
+    g = torch.Generator(device=card).manual_seed(11)
+    w = (torch.rand((384, 51865), generator=g, device=card) - 0.5) * 0.1
+    pw = program_weight(w, cfg, PRNGKey(3))
+    assert pw.slices.shape[-1] == 406 * 128
+    x = torch.randn((4, 384), generator=g, device=card)
+    before = sm.counter.count
+    y = mem_linear(x, w, None, cfg, None, prepared=pw, kernels=True)
+    assert sm.counter.count == before + 1
+    yp = mem_linear(x, w, None, cfg, None, prepared=pw, kernels=False)
+    torch.cuda.synchronize()
+    assert y.shape == (4, 51865)
+    assert torch.equal(y, yp), float((y - yp).abs().max())
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "phi-3-vision-4.2b"])
+def test_side_input_smoke_kernels_equal_plain(card, arch):
+    """whisper-smoke and phi3-vision-smoke through the launcher's default
+    mode under ``mem_faithful``: tokens and every logit row with the
+    kernels equal the plain versions' bit for bit."""
+    from repro_torch.launch import serve
+
+    args = ["--arch", arch, "--smoke", "--policy", "mem_faithful", "--batch", "2",
+            "--prompt_len", "8", "--gen", "2"]
+    on = serve.main(args + ["--kernels", "on"], collect_logits=True)
+    off = serve.main(args + ["--kernels", "off"], collect_logits=True)
+    assert torch.equal(on[0], off[0]) and torch.equal(on[1], off[1])
