@@ -11,7 +11,9 @@ Phases (any failure exits non-zero; nothing is caught):
 2. build every kernel from ``src/repro_torch/csrc`` with ``nvcc`` for
    ``sm_90a`` (the compiler's register / spill report goes to
    ``chiprun_out/chip_smoke/build.log``), meanwhile running the seven
-   apps' plain versions on the card (``plain_apps``, held in phase 6);
+   apps' plain versions on the card (``plain_apps``, held in phase 6)
+   and, on a stream of their own, the plain K1 at the train phases'
+   calls (``k1_plain_ahead``, held in phase 5);
 3. hold each kernel against its plain PyTorch version on the card and
    time both (CUDA events, L2 flushed before each launch), beside the
    least time the card could take: K1 bit for bit at qwen2-0.5b's
@@ -53,8 +55,9 @@ Phases (any failure exits non-zero; nothing is caught):
    requests through a ``ServeLoop`` with ``max_len`` 32,768
    (qwen2-0.5b's context; block tables of 2,048 entries), whose tokens
    and logits must equal the ``max_len`` 128 run's bit for bit, and one
-   request of 6,016 prompt tokens and 8 new ones (``max_len`` 8,192)
-   served with prefill chunks of 32 and of 64, whose tokens must agree;
+   request of 6,016 prompt tokens and 8 new ones (``max_len`` 8,192) at 2
+   of the 24 layers served with prefill chunks of 32 and of 64, whose
+   tokens must agree;
    then the same model serves the requests sampled (temperature 0.8,
    top-k 50, top-p 0.95, seed = rid) with one more at temperature 0 —
    bit-equal to the plain versions, the same tokens through 1 slot, the
@@ -71,8 +74,8 @@ Phases (any failure exits non-zero; nothing is caught):
    ("mem_faithful")``, batch 4, prompt 16, 16 new tokens) through the
    dense ``greedy_generate`` (K1 and K6 launched, by the formula; its
    tok/s and ITL), the same at 1 layer with ``--kernels on`` and
-   ``off`` and at 2 layers with ``--per_call`` (tokens and every logit
-   row bit-equal), ``--requests 8 --slots 4 --gen 8`` through the
+   ``off`` (4 new tokens) and at 2 layers with ``--per_call`` (tokens and
+   every logit row bit-equal), ``--requests 8 --slots 4 --gen 8`` through the
    ``ServeLoop`` (K1, K2, K3 launched, every request finished), and one
    1,536-token prompt under ``digital`` through the dense path
    (``attention_chunked``) and the ``ServeLoop`` (equal tokens,
@@ -85,13 +88,14 @@ Phases (any failure exits non-zero; nothing is caught):
    rwkv6-1.6b --policy mem_faithful`` through the dense
    ``greedy_generate`` (K1 193 x 17 and K6 772 launches, no K2 / K3; its
    programming, prefill, ITL, idle share and K1 a step), one 4,096-token
-   prompt under ``mem_faithful`` (prefill, ITL, peak memory, K1 193 x 5),
+   prompt under ``mem_faithful`` at 2 of the 24 layers (prefill, ITL,
+   peak memory, K1 17 x 5),
    a 100-token prompt under ``digital`` through the chunked WKV form
-   against the same prompt fed token by token at 4 of the 24 layers
+   against the same prompt fed token by token at 2 of the 24 layers
    (equal tokens, first-token logits within max rel 1e-4), and the
-   default mode at 1 layer with ``--kernels on`` against ``off`` and at
-   2 layers against ``--per_call`` (tokens and every logit row
-   bit-equal); ``--only rwkv6`` runs this phase alone after the build; then qwen3-moe-235b-a22b (the
+   default mode at 1 layer with ``--kernels on`` against ``off`` (4 new
+   tokens) and at 2 layers against ``--per_call`` (tokens and every
+   logit row bit-equal); ``--only rwkv6`` runs this phase alone after the build; then qwen3-moe-235b-a22b (the
    token-choice top-8 MoE over 128 experts, ``moe``): at qwen3-moe-smoke
    widths the launcher's default mode and ``--requests`` with the kernels
    bit-equal to their plain versions, K2 / K3 at its head layout (16
@@ -124,7 +128,7 @@ Phases (any failure exits non-zero; nothing is caught):
    the launcher's default mode (K1 and K6 by the formula) and the same
    generation timed and profiled (init, programming, TTFT, ITL, tok/s,
    idle share, peak memory, K1 in the prefill and a decode step against
-   their bounds, eager launches); phi-3-vision at full width cut to 16 of
+   their bounds, eager launches); phi-3-vision at full width cut to 4 of
    its 32 layers, 576 patch embeddings ahead of 16 prompt tokens, batch
    2, 8 new, ``max_len`` 601, likewise; K1 at every distinct (K, N) of
    both paths (the ragged 51,865- and 32,064-column heads included, and
@@ -146,7 +150,7 @@ Phases (any failure exits non-zero; nothing is caught):
    bit-equal to an uninterrupted one; K1 at the trainer's calls, each
    projection shape at 1,024 rows and the vocab head at 512 rows (its
    plain version over three slabs of 2,048 columns), bit-equal to its
-   plain version (``check_k1_train``);
+   plain version (``check_k1_train``, :func:`check_k1_calls`);
    at 1 of the 24 layers (batch 2 x 16, 2 steps) the kernels against
    their plain versions and remat on against off, every loss, grad
    norm, parameter and moment bit for bit (``train_plain``); one
@@ -156,7 +160,27 @@ Phases (any failure exits non-zero; nothing is caught):
    ``repro_torch.examples.hw_training`` for 100 steps, whose loss must
    fall (``hw_training``).  ``python3 chip_smoke.py --only train``, an
    aid while developing the trainer (the smoke test proper takes no
-   arguments), builds the kernels and runs these phases alone;
+   arguments), builds the kernels and runs these phases alone; then the
+   same launcher trains rwkv6-1.6b at full width and depth
+   (``rwkv6_train``: ``mem_faithful``, batch 4 x 128, the chunked WKV
+   form, 3 steps, each loss and grad norm finite, K1 and K6 by the
+   formula, step time, tokens/s, peak memory, one step profiled for the
+   idle share and K1 against its bound (launching what a timed step
+   did); K1 at every distinct (K, N, M) of the step, the projections at
+   512 rows and the head at 256, bit-equal to its plain version; at 1
+   layer, batch 1 x 64, 2 steps, the kernels against their plain
+   versions and remat on against off, every loss, grad norm, parameter
+   and moment bit for bit) and
+   qwen3-moe-235b-a22b's first layer at full width (``moe_train``: the
+   memory reckoning of parameters, gradients, AdamW's moments and one
+   programmed stack printed first; batch 2 x 128, 2 steps, AdamW in
+   place, K1, the stacked K1 (one launch a stack a forward pass) and K6
+   by the formula, the same prints; the stacked K1 at the phase's shapes
+   on 4 experts of ``wi`` and ``wo`` and K1 at the attention's shapes at
+   256 rows and the head's at 128 bit-equal to its plain version;
+   qwen3-moe-smoke's kernels against their plain versions and remat on
+   against off, bit for bit); ``--only rwkv6_train`` and ``--only
+   moe_train`` run each alone after the build;
 6. run the seven paper applications (``repro_torch.apps``) at their
    reference defaults (the default ``DPEConfig`` backend ``xla``: the
    ``dynamic`` ADC range spans a whole call, K-means' 150 rows
@@ -173,6 +197,7 @@ kernel; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -736,6 +761,12 @@ def check_bitwise(what, rep_a, rep_b, rids=None):
 # trainer phases: one layer keeps every projection shape and the head, and each layer
 # more adds a layer of the plain versions to each of the four phases
 CUT_LAYERS = 1
+# decode steps of the 1-layer kernels-against-plain runs of the launcher (each
+# plain step runs the vocab head's plain K1)
+CUT_GEN = 4
+# the depth of the long-prompt checks (the 6,016-token request, rwkv6's
+# 4,096-token prompt): they test positions and chunkings, not depth
+LONG_LAYERS = 2
 # the depth of the checks that run the kernels alone (``--per_call`` against the
 # programmed run, the trainer's checkpoint resume): a second layer has keys of its own
 CHECK_LAYERS = 2
@@ -787,9 +818,10 @@ def serve_long(params, qcfg, sc, loop, reqs, rep, card):
     32,768 (block tables of 2,048 entries) on the same programmed state,
     whose tokens and logits must equal the ``max_len`` 128 run's bit for
     bit; then one request of 6,016 prompt tokens and 8 new ones at
-    ``max_len`` 8,192, so that every decode step's K2 reads more than the
-    5,664 positions the old K2 could hold, served with prefill chunks of
-    32 and of 64 (kernels only): equal tokens."""
+    ``max_len`` 8,192 at ``LONG_LAYERS`` layers, so that every decode
+    step's K2 reads more than the 5,664 positions the old K2 could hold,
+    served with prefill chunks of 32 and of 64 (kernels only): equal
+    tokens."""
     from repro_torch.kernels import ops
     from repro_torch.serve import Request, ServeLoop
 
@@ -813,10 +845,11 @@ def serve_long(params, qcfg, sc, loop, reqs, rep, card):
     torch.cuda.empty_cache()
 
     prompt = np.random.default_rng(6016).integers(0, qcfg.vocab, 6016).astype(np.int32)
+    lcfg, lparams, lprog = cut_depth(qcfg, params, loop.programmed, n=LONG_LAYERS)
     tokens = {}
     for chunk in (32, 64):
-        lp = ServeLoop(params, qcfg, sc.replace(slots=1, max_len=8192, prefill_chunk=chunk),
-                       programmed=loop.programmed)
+        lp = ServeLoop(lparams, lcfg, sc.replace(slots=1, max_len=8192, prefill_chunk=chunk),
+                       programmed=lprog)
         ops.reset_counters()
         lrep = lp.run([Request(0, prompt, 8)])
         torch.cuda.synchronize()
@@ -827,12 +860,13 @@ def serve_long(params, qcfg, sc, loop, reqs, rep, card):
             raise AssertionError(f"long request, chunk {chunk}: {r.finish_reason} {r.tokens}")
         if not all(np.isfinite(row).all() for row in r.logits):
             raise AssertionError(f"long request, chunk {chunk}: non-finite logits")
-        if (lrep.decode_steps != 7 or k2 != qcfg.n_layers * lrep.decode_steps
-                or k3 != qcfg.n_layers * lrep.prefill_chunks_run):
+        if (lrep.decode_steps != 7 or k2 != lcfg.n_layers * lrep.decode_steps
+                or k3 != lcfg.n_layers * lrep.prefill_chunks_run):
             raise AssertionError(f"long request, chunk {chunk}: {lrep.decode_steps} decode "
                                  f"steps, {k2} K2 and {k3} K3 launches")
         tokens[chunk] = r.tokens
-        print(f"long request (6016 prompt tokens, 8 new, max_len 8192), prefill chunk {chunk}: "
+        print(f"long request at {LONG_LAYERS} layers (6016 prompt tokens, 8 new, max_len 8192), "
+              f"prefill chunk {chunk}: "
               f"{lrep.prefill_chunks_run} chunks, {lrep.decode_steps} decode steps at positions "
               f"6016-6022 ({k2} K2, {k3} K3 launches), TTFT {r.ttft_s * 1e3:.0f} ms, ITL mean "
               f"{lrep.itl_percentiles()['mean'] * 1e3:.1f} ms, wall {lrep.wall_s:.2f} s; "
@@ -1117,7 +1151,7 @@ def launch(params, qcfg, card, counters):
         counters[name] = counters.get(name, 0) + n
     dense_rate(params, qcfg, card)
 
-    cut = LAUNCH + ["--layers", str(CUT_LAYERS)]
+    cut = LAUNCH + ["--layers", str(CUT_LAYERS), "--gen", str(CUT_GEN)]
     ops.reset_counters()
     on = launcher.main(cut + ["--kernels", "on"], collect_logits=True)
     k1_on = ops.COUNTERS["fused_sliced_matmul"].count
@@ -1229,7 +1263,7 @@ RWKV_K1_STEP = 8 * 24 + 1  # r, k, v, g, o and the MLP's wi, wg, wo in 24 layers
 RWKV_PROMPT = 100  # a digital prefill through the chunked WKV form: 4 chunks, the last padded
 # the depth of that prompt's check against token-by-token decoding, whose 104 decode
 # steps take ~0.27 s each at the full 24 layers
-RWKV_SCAN_LAYERS = 4
+RWKV_SCAN_LAYERS = 2
 RWKV_LONG = 4096  # one long prompt: the O(1) recurrent state at 4,096 tokens
 RWKV_LONG_NEW = 4  # decode steps after a prefill (greedy_generate's n_steps)
 RWKV_PROFILED = 4  # decode steps of the profiled generation (the idle share, K1 a step)
@@ -1340,34 +1374,37 @@ def rwkv6(card, counters):
               f"K1 {(k1_a - k1_p) / RWKV_PROFILED:.3f} ms device, "
               f"{(n_a - n_p) / RWKV_PROFILED:.0f} other launches  [{card}]")
 
-    # one long prompt: the prefill, then RWKV_LONG_NEW decode steps
+    # one long prompt at LONG_LAYERS layers: the prefill, then
+    # RWKV_LONG_NEW decode steps
     long_prompt = randint(PRNGKey(1), (1, RWKV_LONG), 0, cfg.vocab, device="cuda")
-    prefill = make_prefill_step(cfg, pol, compute_dtype=torch.float32,
+    lcfg, lparams, lprog = cut_depth(cfg, params, prog, n=LONG_LAYERS)
+    prefill = make_prefill_step(lcfg, pol, compute_dtype=torch.float32,
                                 cache_dtype=torch.float32)
-    decode = make_decode_step(cfg, pol, compute_dtype=torch.float32)
+    decode = make_decode_step(lcfg, pol, compute_dtype=torch.float32)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counters()
     t0 = time.monotonic()
-    logits, cache = prefill(params, {"tokens": long_prompt}, prog)
+    logits, cache = prefill(lparams, {"tokens": long_prompt}, lprog)
     torch.cuda.synchronize()
     t_pre = time.monotonic() - t0
     out = [torch.argmax(logits, dim=-1)]
     t0 = time.monotonic()
     for _ in range(RWKV_LONG_NEW):
-        logits, cache = decode(params, cache, out[-1], prog)
+        logits, cache = decode(lparams, cache, out[-1], lprog)
         out.append(torch.argmax(logits, dim=-1))
     torch.cuda.synchronize()
     itl = (time.monotonic() - t0) / RWKV_LONG_NEW
     k1 = ops.COUNTERS["fused_sliced_matmul"].count
+    want_k1 = (8 * LONG_LAYERS + 1) * (RWKV_LONG_NEW + 1)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"rwkv6 long prompt ({RWKV_LONG} tokens, batch 1, mem_faithful, {RWKV_LONG_NEW} new): "
-          f"prefill {t_pre * 1e3:.1f} ms, ITL {itl * 1e3:.1f} ms, peak device memory "
-          f"{peak:.2f} GiB, K1 {k1} launches (expected {RWKV_K1_STEP * (RWKV_LONG_NEW + 1)}), "
-          f"tokens {torch.stack(out, 1)[0].tolist()}  [{card}]")
-    if k1 != RWKV_K1_STEP * (RWKV_LONG_NEW + 1) or not bool(torch.isfinite(logits).all()):
+    print(f"rwkv6 long prompt at {LONG_LAYERS} layers ({RWKV_LONG} tokens, batch 1, "
+          f"mem_faithful, {RWKV_LONG_NEW} new): prefill {t_pre * 1e3:.1f} ms, ITL "
+          f"{itl * 1e3:.1f} ms, peak device memory {peak:.2f} GiB, K1 {k1} launches (expected "
+          f"{want_k1}), tokens {torch.stack(out, 1)[0].tolist()}  [{card}]")
+    if k1 != want_k1 or not bool(torch.isfinite(logits).all()):
         raise AssertionError("rwkv6 long prompt: K1 launches or non-finite logits")
     counters["fused_sliced_matmul"] += k1
-    del prog, cache, logits
+    del prog, lprog, lparams, cache, logits
     torch.cuda.empty_cache()
 
     # a digital prompt through the chunked form against token-by-token decoding
@@ -1401,7 +1438,7 @@ def rwkv6(card, counters):
 
     # kernels against their plain versions, per-call against programmed:
     # the default mode at CUT_LAYERS layers (full width, the head included)
-    cut = RWKV_LAUNCH + ["--layers", str(CUT_LAYERS)]
+    cut = RWKV_LAUNCH + ["--layers", str(CUT_LAYERS), "--gen", str(CUT_GEN)]
     ops.reset_counters()
     on = launcher.main(cut + ["--kernels", "on"], collect_logits=True)
     k1_on = ops.COUNTERS["fused_sliced_matmul"].count
@@ -1409,7 +1446,7 @@ def rwkv6(card, counters):
     off = launcher.main(cut + ["--kernels", "off"], collect_logits=True)
     torch.cuda.synchronize()
     t_off = time.monotonic() - t0
-    if (k1_on != (8 * CUT_LAYERS + 1) * 17
+    if (k1_on != (8 * CUT_LAYERS + 1) * (CUT_GEN + 1)
             or ops.COUNTERS["fused_sliced_matmul"].count != k1_on):
         raise AssertionError("rwkv6: --kernels on launched other than the formula's K1, or "
                              "--kernels off launched one")
@@ -2039,7 +2076,9 @@ WHISPER = "whisper-tiny"
 PHI3V = "phi-3-vision-4.2b"
 WHISPER_LAUNCH = ["--arch", WHISPER, "--policy", "mem_faithful", "--batch", "4", "--prompt_len",
                   "16", "--gen", "16"]
-PHI3V_LAYERS = 16  # of 32: the whole model's 59.6 GB of slices and 15.3 GB of params fill the card
+# of 32: the whole model's 59.6 GB of slices and 15.3 GB of params fill the card; 4
+# keeps the script in its time limit
+PHI3V_LAYERS = 4
 PHI3V_BATCH, PHI3V_PROMPT, PHI3V_NEW = 2, 16, 8
 ENCDEC_SMOKE = ["--smoke", "--policy", "mem_faithful", "--batch", "2", "--prompt_len", "8",
                 "--gen", "2"]
@@ -2774,7 +2813,6 @@ def check_k6(timer, qcfg, summary, card):
 # the launcher at qwen2-0.5b's full width, make_policy("mem_faithful"),
 # 3 steps of batch 8 x 128 tokens (loss chunks of 64, remat on, float32)
 TRAIN = ["--policy", "mem_faithful", "--steps", "3", "--batch", "8", "--seq", "128"]
-TRAIN_TOKENS = 8 * 128
 # the kernels-against-plain comparison: 1 of the 24 layers, batch 2 x 16
 TRAIN_CUT = ["--policy", "mem_faithful", "--layers", str(CUT_LAYERS), "--batch", "2", "--seq",
              "16", "--steps", "2"]
@@ -2782,18 +2820,24 @@ LOSS_CHUNK = 64  # launch/train.py's
 CKPT_DIR = os.path.join(HERE, "build", "chip_smoke_ckpt")
 
 
-def train_launches(n_layers, steps, seq, remat=True, n_slices=None):
-    """(K1, K6) launches of ``steps`` faithful train steps: per step one
-    programming and one K1 a projection (7 a layer) and a loss chunk
-    (the vocab head), all twice with remat (the recompute); a
-    programming is one K6 launch a slice plane."""
+def train_launches(n_layers, steps, seq, remat=True, n_slices=None, per_layer=7, stacks=0,
+                   experts=0):
+    """(K1, K6, stacked K1) launches of ``steps`` faithful train steps: per
+    step one programming and one K1 a projection (``per_layer`` a layer:
+    qwen2's 7, rwkv6's 8, an MoE layer's 4 attention projections) and a
+    loss chunk (the vocab head), one stacked K1 a stack of ``experts``
+    (``stacks`` a layer), all twice with remat (the recompute); a
+    programming is one K6 launch a slice plane of each weight, each
+    expert's."""
     from repro_torch.launch.dryrun import make_policy
 
     if n_slices is None:
         n_slices = make_policy("mem_faithful").default.weight_spec.n_slices
     chunks = -(-seq // min(LOSS_CHUNK, seq))
-    k1 = (7 * n_layers + chunks) * (2 if remat else 1) * steps
-    return k1, k1 * n_slices
+    passes = (2 if remat else 1) * steps
+    k1 = (per_layer * n_layers + chunks) * passes
+    st = stacks * n_layers * passes
+    return k1, (k1 + st * experts) * n_slices, st
 
 
 def _leaves_equal(a, b) -> bool:
@@ -2805,75 +2849,28 @@ def _leaves_equal(a, b) -> bool:
 
 
 def _train_counts():
+    """(K1, K6, stacked K1) launches so far."""
     from repro_torch.kernels import ops
 
-    return ops.COUNTERS["fused_sliced_matmul"].count, ops.COUNTERS["program_noise"].count
+    return tuple(ops.COUNTERS[name].count for name in
+                 ("fused_sliced_matmul", "program_noise", "fused_sliced_matmul_stack"))
 
 
 def train(qcfg, card, counters):
     """``repro_torch.launch.train.main`` at qwen2-0.5b's full width and
     depth under ``mem_faithful``: 3 steps (each loss and grad norm finite,
     K1 and K6 launched by the formula), one more step profiled (idle
-    share, K1 / K6 device ms a step); then, at ``CHECK_LAYERS`` layers
-    (full width, the same batch, loss chunks and remat), a resumed run
-    (2 steps with ``--ckpt``, then to step 3) bit-equal to 3 steps
+    share, K1 a step against its bound, K6); then, at ``CHECK_LAYERS``
+    layers (full width, the same batch, loss chunks and remat), a resumed
+    run (2 steps with ``--ckpt``, then to step 3) bit-equal to 3 steps
     without a break."""
     import shutil
 
-    from repro_torch.data.pipeline import synthetic_batch
-    from repro_torch.kernels import ops
     from repro_torch.launch import train as trainer
-    from repro_torch.launch.dryrun import make_policy
-    from repro_torch.optim import adamw, cosine_schedule
-    from repro_torch.train import make_train_step
 
-    ops.reset_counters()
-    rep: dict = {}
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.monotonic()
-    hist, state = trainer.main(TRAIN, return_state=True, report=rep)
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    k1, k6 = _train_counts()
     want = train_launches(qcfg.n_layers, 3, 128)
-    for i, (loss, gn, dt) in enumerate(zip(rep["loss"], rep["grad_norm"], rep["step_s"])):
-        print(f"train qwen2-0.5b mem_faithful step {i}: loss {loss:.6f}, grad norm {gn:.6f}, "
-              f"{dt * 1e3:.1f} ms, {TRAIN_TOKENS / dt:.1f} tokens/s  [{card}]")
-    print(f"train: 3 steps in {wall:.1f} s with the launcher's set-up; K1 {k1} launches, K6 {k6} "
-          f"(expected {want[0]}, {want[1]}); peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB  [{card}]")
-    if (k1, k6) != want:
-        raise AssertionError(f"train: launches K1 {k1}, K6 {k6}, expected {want}")
-    if not all(np.isfinite(rep["loss"] + rep["grad_norm"])):
-        raise AssertionError(f"train: non-finite loss or grad norm {rep}")
-    counters["fused_sliced_matmul"] = counters.get("fused_sliced_matmul", 0) + k1
-    counters["program_noise"] = counters.get("program_noise", 0) + k6
-
-    # one more step (step 3) profiled; its work is that of steps 1 and 2,
-    # whose host times stand for its wall time
-    opt = adamw(lr=cosine_schedule(3e-4, warmup=5, total=3))
-    step_fn = make_train_step(qcfg, opt, make_policy("mem_faithful"),
-                              compute_dtype=torch.float32, loss_chunk=LOSS_CHUNK)
-    batch = synthetic_batch(qcfg, 8, 128, 3, device="cuda")
-    step_ms = statistics.mean(rep["step_s"][1:]) * 1e3
-    groups = device_groups(lambda: step_fn(state, batch))
-    if groups:
-        busy = sum(ms for ms, _ in groups.values())
-        k6_ms = sum(ms for g, (ms, _) in groups.items() if "program_noise" in g)
-        k6_n = sum(n for g, (_, n) in groups.items() if "program_noise" in g)
-        k1_ms, k1_n = groups.get("K1", (0.0, 0))
-        print(f"train step (qwen2-0.5b, 1,024 tokens): {step_ms:.1f} ms wall (steps 1 and 2), "
-              f"device busy {busy:.1f} ms, idle share {1 - busy / step_ms:.3f}; K1 {k1_ms:.1f} "
-              f"ms in {k1_n} kernel launches, K6 {k6_ms:.1f} ms in {k6_n} launches a step  "
-              f"[{card}]")
-        other = sorted(((ms, n, g) for g, (ms, n) in groups.items()
-                        if g.startswith("other") and "program_noise" not in g), reverse=True)
-        print(f"  other device work: {sum(o[0] for o in other):.1f} ms in "
-              f"{sum(o[1] for o in other)} launches; largest:")
-        for ms, n, g in other[:6]:
-            print(f"    {ms:.2f} ms in {n} launches  {g[7:]}")
-    else:
-        print("train step: device time not measured (the profiler saw no device events)")
+    rep, state = train_run("qwen2-0.5b mem_faithful (8 x 128)", TRAIN, want, card, counters)
+    train_profile("qwen2-0.5b (1,024 tokens)", qcfg, TRAIN, rep, state, want, card)
 
     del state
     torch.cuda.empty_cache()
@@ -2897,101 +2894,195 @@ def train(qcfg, card, counters):
         raise AssertionError("train: the resumed run differs from the uninterrupted one")
 
 
-def train_plain(card):
-    """The trainer at ``CUT_LAYERS`` layers of qwen2-0.5b (full width),
-    batch 2 x 16, 2 steps: with the kernels and remat off, with their
-    plain versions (``--kernels off``), and with the kernels and remat
-    on: every loss and grad norm, parameter and moment bit-equal."""
+def train_plain(card, args=TRAIN_CUT, label=f"qwen2-0.5b at {CUT_LAYERS} layers",
+                expect=lambda remat: train_launches(CUT_LAYERS, 2, 16, remat=remat)):
+    """The trainer on ``args`` (by default ``CUT_LAYERS`` layers of
+    qwen2-0.5b at full width, batch 2 x 16, 2 steps): with the kernels
+    and remat off, with their plain versions (``--kernels off``), and
+    with the kernels and remat on: every loss and grad norm, parameter
+    and moment bit-equal, the launches ``expect(remat)`` (K1, K6,
+    stacked K1)."""
+    from repro_torch.kernels import sliced_matmul as sm
     from repro_torch.launch import train as trainer
 
+    gc.collect()
+    kept = sum(t.numel() * t.element_size() for pair in sm._workspace.values() for t in pair
+               if t is not None)
+    print(f"train {label}: device memory held before the runs "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, of it K1's kept workspace "
+          f"{kept / 2**30:.2f} GiB (each run's peak below includes it)")
     runs = {}
-    for label, extra in (("kernels", ["--remat", "off"]),
-                         ("plain", ["--remat", "off", "--kernels", "off"]),
-                         ("remat", ["--remat", "on"])):
+    for run, extra in (("kernels", ["--remat", "off"]),
+                       ("plain", ["--remat", "off", "--kernels", "off"]),
+                       ("remat", ["--remat", "on"])):
         rep: dict = {}
         before = _train_counts()
         t0 = time.monotonic()
-        _, st = trainer.main(TRAIN_CUT + extra, return_state=True, report=rep)
+        _, st = trainer.main(args + extra, return_state=True, report=rep)
         torch.cuda.synchronize()
         n = tuple(a - b for a, b in zip(_train_counts(), before))
-        runs[label] = (rep, st, n, time.monotonic() - t0)
-        print(f"train at {CUT_LAYERS} layers, {label}: losses {rep['loss']}, grad norms "
-              f"{rep['grad_norm']}; K1 / K6 launches {n}; {runs[label][3]:.1f} s  [{card}]")
-    if runs["plain"][2] != (0, 0):
-        raise AssertionError("train: --kernels off launched a kernel")
-    for label, remat in (("kernels", False), ("remat", True)):
-        want = train_launches(CUT_LAYERS, 2, 16, remat=remat)
-        if runs[label][2] != want:
-            raise AssertionError(f"train {label}: launches {runs[label][2]}, expected {want}")
+        runs[run] = (rep, st, n, time.monotonic() - t0)
+        print(f"train {label}, {run}: losses {rep['loss']}, grad norms {rep['grad_norm']}; "
+              f"K1 / K6 / stacked K1 launches {n}; {runs[run][3]:.1f} s  [{card}]")
+    if any(runs["plain"][2]):
+        raise AssertionError(f"train {label}: --kernels off launched a kernel")
+    for run, remat in (("kernels", False), ("remat", True)):
+        want = expect(remat)
+        if runs[run][2] != want:
+            raise AssertionError(f"train {label} {run}: launches {runs[run][2]}, expected {want}")
     for a, b in (("kernels", "plain"), ("kernels", "remat")):
         ra, sa = runs[a][:2]
         rb, sb = runs[b][:2]
         if ra["loss"] != rb["loss"] or ra["grad_norm"] != rb["grad_norm"] or \
                 not _leaves_equal(sa, sb):
-            raise AssertionError(f"train at {CUT_LAYERS} layers: {a} and {b} differ")
-        print(f"train at {CUT_LAYERS} layers: {a} and {b} give every loss, grad norm, parameter "
-              "and moment bit for bit")
+            raise AssertionError(f"train {label}: {a} and {b} differ")
+        print(f"train {label}: {a} and {b} give every loss, grad norm, parameter and moment "
+              "bit for bit")
 
 
-HEAD_SLAB = 2048  # columns of the vocab head held against its plain version, per slab
+HEAD_SLAB = 2048  # columns of a vocab head held against its plain version, per slab
+K1_SEED = 18
 
 
-def check_k1_train(timer, qcfg, card):
-    """K1 at the trainer's calls under ``mem_faithful`` (``dynamic`` ADC
-    over 128-row tiles), bit-equal to its plain version: each projection
-    shape of qwen2-0.5b at 1,024 rows (batch 8 x 128 tokens), and the
-    vocab head at 512 rows (batch 8 x a loss chunk of 64).  The head's
-    kernel runs over the whole head; its plain version over three slabs of
-    ``HEAD_SLAB`` whole crossbar columns (the first, the middle and the
-    last), whose columns it gives alone in the same bits (the ``dynamic``
-    range spans one crossbar's columns): the whole head's plain version
-    would take minutes, estimated here from the slabs' time."""
+def _train_proj(cfg) -> list:
+    """(K, N) of K1's projections in one layer of ``cfg``'s trainer, in
+    call order: RWKV6's r, k, v, g and output or attention's q, k, v, o;
+    then the gated MLP's (none in an MoE layer: its experts are stacks)."""
+    d = cfg.d_model
+    kind, moe = cfg.layer_kind(0)
+    if kind == "ssm":
+        mix = [(d, d)] * 5
+    else:
+        qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+        mix = [(d, qd), (d, kvd), (d, kvd), (qd, d)]
+    return mix + ([] if moe else [(d, cfg.d_ff), (d, cfg.d_ff), (cfg.d_ff, d)])
+
+
+def train_k1_cases(phase) -> list:
+    """The distinct (K, N, M) of K1's calls in one train step of
+    ``phase`` (:data:`TRAIN_K1`), in call order."""
+    from repro_torch.configs import get
+
+    arch, args = TRAIN_K1[phase]
+    cfg = get(arch)
+    if "--layers" in args:
+        cfg = cfg.replace(n_layers=_arg(args, "--layers"))
+    return list(dict.fromkeys(_step_calls(cfg, args, _train_proj(cfg))))
+
+
+def _k1_pieces(n: int):
+    """Column pieces of an N-wide weight, each programmed with a key of its
+    own, and the pieces held against the plain version: one piece, held
+    whole, up to 8 ``HEAD_SLAB`` columns (every projection); a vocab head
+    in slabs of ``HEAD_SLAB`` whole crossbar columns, of which the first,
+    the middle and the last are held (a slab's plain version gives its
+    columns of the whole in the same bits: ``dynamic`` ranges and block
+    scales span one crossbar's columns)."""
+    if n <= 8 * HEAD_SLAB:
+        return [(0, n)], [0]
+    pieces = [(c, min(c + HEAD_SLAB, n)) for c in range(0, n, HEAD_SLAB)]
+    return pieces, [0, len(pieces) // 2, len(pieces) - 1]
+
+
+def _k1_operands(seed: int, k: int, n: int, m: int, pieces, kernels: bool):
+    """x (m, k) and the programmed pieces ``pieces`` of a (k, n) weight
+    under ``mem_faithful``, all drawn on the card from ``seed`` (piece j
+    from its own generator and ``fold_in(PRNGKey(seed), j)``), programmed
+    by K6 or (``kernels=False``) its plain version, which agree bit for
+    bit."""
     from repro_torch.core.dpe import prepare_weight
-    from repro_torch.core.prng import PRNGKey
+    from repro_torch.core.prng import PRNGKey, fold_in
+    from repro_torch.launch.dryrun import make_policy
+
+    cfg = make_policy("mem_faithful").default
+    x = torch.randn((m, k), generator=torch.Generator(device="cuda").manual_seed(seed),
+                    device="cuda")
+    cols = _k1_pieces(n)[0]
+    out = []
+    for j in pieces:
+        c0, c1 = cols[j]
+        g = torch.Generator(device="cuda").manual_seed(1000 * seed + j)
+        w = torch.randn((k, c1 - c0), generator=g, device="cuda") * k**-0.5
+        out.append(prepare_weight(w, cfg, fold_in(PRNGKey(seed), j), kernels=kernels))
+    return x, out
+
+
+def k1_train_plain(phase) -> list:
+    """The plain K1 (and K6) at each of ``phase``'s cases
+    (:func:`train_k1_cases`), on its held pieces: per case (the pieces'
+    outputs on the host, ms).  Needs no kernel."""
+    from repro_torch.kernels import sliced_matmul as sm
+    from repro_torch.launch.dryrun import make_policy
+
+    kw = _k1_kw(make_policy("mem_faithful").default)
+    res = []
+    for i, (k, n, m) in enumerate(train_k1_cases(phase)):
+        t0 = time.monotonic()
+        held = _k1_pieces(n)[1]
+        x, pws = _k1_operands(K1_SEED + i, k, n, m, held, kernels=False)
+        ys = [sm.fused_sliced_matmul_ref(x, pw.slices, pw.scale, **kw).cpu() for pw in pws]
+        res.append((ys, (time.monotonic() - t0) * 1e3))
+        del x, pws
+    return res
+
+
+def k1_plain_ahead(phases) -> dict:
+    """:func:`k1_train_plain` of each of ``phases`` on a stream of its own
+    (while the apps' plain runs and ``nvcc`` take the card and the host)."""
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        out = {phase: k1_train_plain(phase) for phase in phases}
+    stream.synchronize()
+    return out
+
+
+def check_k1_calls(timer, phase, label, card, plain=None):
+    """K1 at every distinct (K, N, M) of ``phase``'s train step (its
+    projections on the batch's rows, the vocab head on a loss chunk's),
+    under ``mem_faithful`` (``dynamic`` ADC over 128-row tiles), bit-equal
+    to its plain version (``plain``: :func:`k1_train_plain`'s, computed
+    here if not given), then timed beside its bound.  The kernel runs on
+    the whole weight, its pieces (:func:`_k1_pieces`) programmed by K6;
+    the plain version on the held pieces."""
     from repro_torch.kernels import sliced_matmul as sm
     from repro_torch.launch.dryrun import make_policy
 
     cfg = make_policy("mem_faithful").default
     kw = _k1_kw(cfg)
-    bn = cfg.array_size[1]
-    d, kv = qcfg.d_model, qcfg.n_kv_heads * qcfg.head_dim
-    shapes = (("q, o", d, d), ("k, v", d, kv), ("gate, up", d, qcfg.d_ff),
-              ("down", qcfg.d_ff, d), ("vocab head", d, qcfg.vocab))
-    g = torch.Generator(device="cuda").manual_seed(18)
-    for i, (label, k, n) in enumerate(shapes):
-        m = 8 * LOSS_CHUNK if label == "vocab head" else TRAIN_TOKENS
-        pw = prepare_weight(torch.randn((k, n), generator=g, device="cuda") * k**-0.5, cfg,
-                            PRNGKey(18 + i))
-        x = torch.randn((m, k), generator=g, device="cuda")
-        y = sm.fused_sliced_matmul_cuda(x, pw.slices, pw.scale, **kw)
-        _, kp, np_ = pw.slices.shape
-        if label == "vocab head":
-            mid = (np_ // bn // 2) * bn
-            cols = [(0, HEAD_SLAB), (mid, mid + HEAD_SLAB), (np_ - HEAD_SLAB, np_)]
-        else:
-            cols = [(0, np_)]
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        same = True
-        for c0, c1 in cols:
-            yp = sm.fused_sliced_matmul_ref(x, pw.slices[:, :, c0:c1].contiguous(),
-                                            pw.scale[:, c0 // bn:c1 // bn].contiguous(), **kw)
-            same = same and torch.equal(y[:, c0:c1], yp)
-        torch.cuda.synchronize()
-        t_plain = (time.monotonic() - t0) * 1e3
-        if not bool(torch.isfinite(y).all()) or not same:
-            raise AssertionError(f"K1 {label} at M={m}: differs from its plain version")
-        t = timer(lambda: sm.fused_sliced_matmul_cuda(x, pw.slices, pw.scale, **kw))
-        nbytes = 4 * (pw.slices.numel() + pw.scale.numel() + x.numel() + m * np_)
-        flops = 2 * cfg.input_spec.n_slices * cfg.weight_spec.n_slices * m * kp * np_
-        b, by = bound_ms(nbytes, flops)
-        done = sum(c1 - c0 for c0, c1 in cols)
-        plain = (f"plain {t_plain:.1f} ms" if done == np_ else
-                 f"plain {t_plain:.1f} ms over {done:,} of its {np_:,} columns (the whole head "
-                 f"estimated {t_plain * np_ / done / 1e3:.0f} s)")
-        print(f"K1 {label} ({k} -> {n}) at M={m} bit-equal to its plain version: kernel "
-              f"{t:.4f} ms, {plain}, bound {b:.4f} ms ({by}), {b / t:.1%} of it  [{card}]")
-        del pw, x, y
+    cases = train_k1_cases(phase)
+    ahead = plain is not None
+    plain = plain if ahead else k1_train_plain(phase)
+    for i, ((k, n, m), (yps, t_plain)) in enumerate(zip(cases, plain)):
+        pieces, held = _k1_pieces(n)
+        x, pws = _k1_operands(K1_SEED + i, k, n, m, range(len(pieces)), kernels=True)
+        ws = torch.cat([pw.slices for pw in pws], dim=-1)
+        sw = torch.cat([pw.scale for pw in pws], dim=-1)
+        del pws
+        y = sm.fused_sliced_matmul_cuda(x, ws, sw, **kw)
+        # each piece is padded to whole crossbars: its columns of y start at its own offset
+        starts = np.cumsum([0] + [-(-(c1 - c0) // 128) * 128 for c0, c1 in pieces])
+        same = bool(torch.isfinite(y).all())
+        for j, yp in zip(held, yps):
+            same = same and torch.equal(y[:, starts[j]:starts[j] + yp.shape[1]].cpu(), yp)
+        if not same:
+            raise AssertionError(f"K1 {k} -> {n} at M={m} ({label}): differs from its plain "
+                                 "version")
+        t = timer(lambda: sm.fused_sliced_matmul_cuda(x, ws, sw, **kw))
+        _, kp, np_ = ws.shape
+        nbytes = 4 * (ws.numel() + sw.numel() + x.numel() + m * np_)
+        b, by = bound_ms(nbytes, 2 * cfg.input_spec.n_slices * cfg.weight_spec.n_slices
+                         * m * kp * np_)
+        done = sum(yp.shape[1] for yp in yps)
+        beside = ", beside the apps' plain runs" if ahead else ""
+        plain_s = f"plain {t_plain:.1f} ms (its programming included{beside})"
+        if done < np_:
+            plain_s += (f" over {done:,} of its {np_:,} columns (slabs from "
+                        f"{', '.join(str(pieces[j][0]) for j in held)})")
+        print(f"K1 {k} -> {n} at M={m} ({label}) bit-equal to its plain version: kernel "
+              f"{t:.4f} ms, {plain_s}, bound {b:.4f} ms ({by}), {b / t:.1%} of it  [{card}]")
+        del x, ws, sw, y
+    print(f"K1 at every distinct (K, N, M) of the {label} train step ({len(cases)}) bit-equal "
+          "to its plain version")
 
 
 def check_optim(qcfg, card):
@@ -3054,8 +3145,8 @@ def hw_training(card):
     torch.cuda.synchronize()
     n = tuple(a - b for a, b in zip(_train_counts(), before))
     print(f"hw_training (h2o-danube smoke, int8 fast, lm_head digital): loss {losses[0]:.4f} -> "
-          f"{losses[-1]:.4f} in 100 steps, {time.monotonic() - t0:.1f} s; K1 / K6 launches "
-          f"{n}  [{card}]")
+          f"{losses[-1]:.4f} in 100 steps, {time.monotonic() - t0:.1f} s; K1 / K6 / stacked K1 "
+          f"launches {n}  [{card}]")
     if not (np.isfinite(losses).all() and losses[-1] < losses[0] and n[1] > 0):
         raise AssertionError("hw_training: the loss did not fall, or K6 never launched")
 
@@ -3064,9 +3155,252 @@ def hw_training(card):
 # phase 5: the paper's applications
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# training rwkv6-1.6b and qwen3-moe-235b-a22b's first layer
+# ---------------------------------------------------------------------------
+
+RWKV_TRAIN = ["--arch", "rwkv6-1.6b", "--policy", "mem_faithful", "--steps", "3", "--batch",
+              "4", "--seq", "128"]
+# the kernels against their plain versions: 1 layer, one row of 64 tokens (the chunked
+# WKV form), 2 steps (the second programs the updated weights): the plain K1 takes ~26 s
+# a step, the vocab head most, twice that at 2 x 64; K1's two-pass calls of whole
+# 128-row tiles are held at the full step's shapes, 256 and 512 rows
+RWKV_TRAIN_CUT = ["--arch", "rwkv6-1.6b", "--policy", "mem_faithful", "--layers",
+                  str(CUT_LAYERS), "--batch", "1", "--seq", "64", "--steps", "2"]
+MOE_TRAIN = ["--arch", MOE_ARCH, "--layers", "1", "--policy", "mem_faithful", "--steps", "2",
+             "--batch", "2", "--seq", "128"]
+MOE_TRAIN_SMOKE = ["--arch", MOE_ARCH, "--smoke", "--policy", "mem_faithful", "--steps", "2",
+                   "--batch", "2", "--seq", "16"]
+MOE_STACK_CHECK = 4  # experts of a stack whose K1 the plain version checks
+# the train phases whose K1 calls are held against the plain version: (arch, trainer args)
+TRAIN_K1 = {"train": ("qwen2-0.5b", TRAIN), "rwkv6_train": ("rwkv6-1.6b", RWKV_TRAIN),
+            "moe_train": (MOE_ARCH, MOE_TRAIN)}
+
+
+def _arg(args, flag) -> int:
+    return int(args[args.index(flag) + 1])
+
+
+def train_run(label, args, expect, card, counters) -> tuple:
+    """``repro_torch.launch.train.main(args)`` on the card: each step's
+    loss, grad norm, time and tokens/s printed, every loss and grad norm
+    finite, the launches ``expect`` (K1, K6, stacked K1) and the peak
+    device memory.  Returns (report, final state)."""
+    from repro_torch.launch import train as trainer
+
+    rep: dict = {}
+    before = _train_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    _, state = trainer.main(args, return_state=True, report=rep)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    n = tuple(a - b for a, b in zip(_train_counts(), before))
+    tokens = _arg(args, "--batch") * _arg(args, "--seq")
+    for i, (loss, gn, dt) in enumerate(zip(rep["loss"], rep["grad_norm"], rep["step_s"])):
+        print(f"train {label} step {i}: loss {loss:.6f}, grad norm {gn:.6f}, {dt * 1e3:.1f} ms, "
+              f"{tokens / dt:.1f} tokens/s  [{card}]")
+    print(f"train {label}: {len(rep['loss'])} steps in {wall:.1f} s with the launcher's set-up; "
+          f"K1 / K6 / stacked K1 launches {n} (expected {expect}); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+    if n != expect:
+        raise AssertionError(f"train {label}: launches {n}, expected {expect}")
+    if not all(np.isfinite(rep["loss"] + rep["grad_norm"])):
+        raise AssertionError(f"train {label}: non-finite loss or grad norm {rep}")
+    for name, k in zip(("fused_sliced_matmul", "program_noise", "fused_sliced_matmul_stack"), n):
+        counters[name] = counters.get(name, 0) + k
+    return rep, state
+
+
+def train_profile(label, cfg, args, rep, state, expect, card):
+    """One more step of ``args``' trainer on ``state``, profiled: the
+    device busy time against the host time of the timed steps after the
+    first (the idle share), and K1's device ms a step against its bound
+    over the step's calls (:func:`_step_calls`; with expert stacks, also
+    the stacked K1 calls recorded in this step, by :func:`stack_bound`).
+    The step must launch what each timed step of the run did (``expect``,
+    the run's (K1, K6, stacked K1) launches: no row groups); the
+    profiler's K1 kernel launches are printed beside the calls' plans (a
+    two-pass call launches twice)."""
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.kernels.sliced_matmul import plan_k1
+    from repro_torch.launch.dryrun import make_policy
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.train import make_train_step
+
+    steps = _arg(args, "--steps")
+    policy = make_policy("mem_faithful")
+    opt = adamw(lr=cosine_schedule(3e-4, warmup=5, total=steps))
+    step_fn = make_train_step(cfg, opt, policy, compute_dtype=torch.float32,
+                              loss_chunk=LOSS_CHUNK, donate=True)
+    batch = synthetic_batch(cfg, _arg(args, "--batch"), _arg(args, "--seq"), steps,
+                            device="cuda")
+    step_ms = statistics.mean(rep["step_s"][1:]) * 1e3
+    calls = _step_calls(cfg, args, _train_proj(cfg))
+    moe = cfg.layer_kind(0)[1]
+    want = tuple(c // steps for c in expect)
+    out: dict = {}
+    before = _train_counts()
+    seen = stack_calls(lambda: out.update(g=device_groups(lambda: step_fn(state, batch))))
+    n = tuple(a - b for a, b in zip(_train_counts(), before))
+    if n != want:
+        raise AssertionError(f"train {label}: the profiled step launched {n} (K1, K6, stacked "
+                             f"K1), a timed step {want}")
+    groups = out["g"]
+    b, gb, by = k1_bound(calls)
+    b += sum(stack_bound(*c)[0] for c in seen)
+    dcfg = policy.default
+    plan = lambda m, k, n: plan_k1(m, -(-k // 128) * 128, -(-n // 128) * 128, 128,  # noqa: E731
+                                   dcfg.input_spec.n_slices, dcfg.weight_spec.n_slices,
+                                   "dynamic", 128, dcfg.radc).launches
+    kernels = sum(plan(m, k, n) for k, n, m in calls) + sum(plan(*c[3:]) for c in seen)
+    if not groups:
+        print(f"train {label} step: device time not measured (the profiler saw no device events)")
+        return
+    busy = sum(ms for ms, _ in groups.values())
+    k1_ms, k1_n = groups.get("K1", (0.0, 0))
+    k6_ms = sum(ms for g, (ms, _) in groups.items() if "program_noise" in g)
+    print(f"train {label} step: {step_ms:.1f} ms wall (the steps after the first), device busy "
+          f"{busy:.1f} ms, idle share {1 - busy / step_ms:.3f}; K1 {k1_ms:.1f} ms in {k1_n} "
+          f"kernel launches (its {n[0]} calls{f' and {n[2]} stacked calls' if moe else ''}, "
+          f"as a timed step's, plan {kernels} launches: two-pass calls launch twice), bound "
+          f"{b:.1f} ms ({by}{'; stacks by their routed rows' if moe else ''}), "
+          f"{b / max(k1_ms, 1e-9):.1%} of it; K6 {k6_ms:.1f} ms  [{card}]")
+    other = sorted(((ms, n, g) for g, (ms, n) in groups.items()
+                    if g.startswith("other") and "program_noise" not in g), reverse=True)
+    print(f"  other device work: {sum(o[0] for o in other):.1f} ms in "
+          f"{sum(o[1] for o in other)} launches; largest:")
+    for ms, n, g in other[:5]:
+        print(f"    {ms:.2f} ms in {n} launches  {g[7:]}")
+
+
+def _step_calls(cfg, args, proj) -> list:
+    """(K, N, M) of K1's calls in one remat train step of ``args``: the
+    ``proj`` projections (K, N) of each layer on the batch's rows and the
+    vocab head on each loss chunk's, each twice (the forward and the
+    recompute)."""
+    b, s = _arg(args, "--batch"), _arg(args, "--seq")
+    ck = min(LOSS_CHUNK, s)
+    calls = [(k, n, b * s) for k, n in proj] * cfg.n_layers
+    calls += [(cfg.d_model, cfg.vocab, b * ck)] * -(-s // ck)
+    return calls * 2
+
+
+def rwkv6_train(timer, card, counters, k1_plain=None):
+    """``repro_torch.launch.train.main`` at rwkv6-1.6b's full width and
+    depth under ``mem_faithful``: batch 4 x 128 tokens (the chunked WKV
+    form, 4 chunks a row), loss chunks of 64, remat on, float32, AdamW, 3
+    steps (each loss and grad norm finite, K1 and K6 by the formula, the
+    step time, tokens/s and peak memory), one more step profiled (idle
+    share, K1 a step against its bound); K1 at every distinct (K, N, M)
+    of the step bit-equal to its plain version (:func:`check_k1_calls`,
+    ``k1_plain`` its plain side if computed ahead); then at
+    ``CUT_LAYERS`` layers (batch 1 x 64, 2 steps) the kernels against
+    their plain versions and remat on against off, bit for bit."""
+    from repro_torch.configs import get
+
+    cfg = get("rwkv6-1.6b")
+    want = train_launches(cfg.n_layers, 3, 128, per_layer=8)
+    rep, state = train_run("rwkv6-1.6b mem_faithful (4 x 128)", RWKV_TRAIN, want, card, counters)
+    train_profile("rwkv6-1.6b (512 tokens)", cfg, RWKV_TRAIN, rep, state, want, card)
+    del state
+    torch.cuda.empty_cache()
+    check_k1_calls(timer, "rwkv6_train", "rwkv6-1.6b", card, k1_plain)
+    torch.cuda.empty_cache()
+    train_plain(card, RWKV_TRAIN_CUT, f"rwkv6-1.6b at {CUT_LAYERS} layers (1 x 64)",
+                lambda remat: train_launches(CUT_LAYERS, 2, 64, remat=remat, per_layer=8))
+
+
+def moe_reckoning(cfg) -> tuple:
+    """The device memory a faithful AdamW step of ``cfg`` needs at least:
+    float32 parameters, gradients and AdamW's two moments (16 B a
+    parameter, the update in place), plus the largest programmed weight
+    alive at once (one expert stack, programmed just before its product,
+    or the vocab head; 16 B a weight of its padded columns).  Returns
+    (GB needed, the line that says so)."""
+    e, d, f = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_expert
+    pad = lambda n: -(-n // 128) * 128  # noqa: E731
+    n = cfg.param_count()
+    state = 16 * n / 1e9
+    stack = 16 * e * max(d * pad(f), f * pad(d)) / 1e9
+    head = 16 * d * pad(cfg.vocab) / 1e9
+    need = state + max(stack, head)
+    total = torch.cuda.get_device_properties(0).total_memory / 1e9
+    return need, total, (f"moe_train reckoning: {n / 1e6:,.1f} M parameters; parameters, "
+                         f"gradients and AdamW's moments {state:.1f} GB; one programmed expert "
+                         f"stack {stack:.1f} GB, the programmed head {head:.1f} GB; at least "
+                         f"{need:.1f} GB of the card's {total:.1f} GB")
+
+
+def moe_train(timer, card, counters, k1_plain=None):
+    """qwen3-moe-235b-a22b's first layer at full width (128 experts of
+    1,536, top 8) through ``repro_torch.launch.train.main`` under
+    ``mem_faithful``, batch 2 x 128, 2 steps, AdamW (the reckoning of
+    :func:`moe_reckoning` printed first): each loss and grad norm finite,
+    K1, the stacked K1 (one launch a stack a forward pass) and K6 by the
+    formula, step time, tokens/s, peak memory; one more step profiled
+    (idle share, K1 a step against its bound, the stacks' by their
+    routed rows); the stacked K1 at this phase's shapes on
+    ``MOE_STACK_CHECK`` experts of ``wi`` and ``wo`` bit-equal to its
+    plain version; K1 at every other distinct (K, N, M) of the step
+    (attention at 256 rows, the head at 128) bit-equal to its plain
+    version (:func:`check_k1_calls`, ``k1_plain`` its plain side if
+    computed ahead); qwen3-moe-smoke for 2 steps with the kernels against
+    their plain versions and remat on against off, bit for bit."""
+    from repro_torch.configs import get, get_smoke
+    from repro_torch.core.dpe import program_stack
+    from repro_torch.core.prng import PRNGKey
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import make_policy
+
+    cfg = get(MOE_ARCH).replace(n_layers=1)
+    need, total, line = moe_reckoning(cfg)
+    print(line)
+    if need > 0.9 * total:
+        raise AssertionError("moe_train: AdamW's state does not fit the card")
+    e = cfg.moe.n_experts
+    want = train_launches(1, 2, 128, per_layer=4, stacks=3, experts=e)
+    rep, state = train_run("qwen3-moe-235b-a22b, 1 layer, mem_faithful (2 x 128)", MOE_TRAIN,
+                           want, card, counters)
+    train_profile("qwen3-moe, 1 layer (256 tokens)", cfg, MOE_TRAIN, rep, state, want, card)
+
+    # the stacked K1 at this phase's shapes (M = 2 rows x capacity 16 an expert)
+    dcfg = make_policy("mem_faithful").default
+    kw = dict(input_spec=dcfg.input_spec, weight_spec=dcfg.weight_spec,
+              array_size=dcfg.array_size, rdac=dcfg.rdac, radc=dcfg.radc, adc_mode="dynamic",
+              bm=128)
+    g = torch.Generator(device="cuda").manual_seed(23)
+    experts = state["params"]["blocks"]["seg0"]["moe"]["experts"]
+    m = 2 * 16
+    for name in ("wi", "wo"):
+        w = experts[name][0, :MOE_STACK_CHECK]
+        pw = program_stack(w, dcfg, PRNGKey(23))
+        x = torch.randn((MOE_STACK_CHECK, m, w.shape[1]), generator=g, device="cuda")
+        x[:, m // 2:] = 0.0  # capacity padding rows
+        y = ops.fused_sliced_matmul(x, pw.slices, pw.scale, **kw)
+        t0 = time.monotonic()
+        yp = ops.fused_sliced_matmul(x, pw.slices, pw.scale, kernels=False, **kw)
+        torch.cuda.synchronize()
+        t_plain = (time.monotonic() - t0) * 1e3
+        if not torch.equal(y, yp) or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"moe_train: the stacked K1 at {name} differs from its plain "
+                                 "version")
+        t = timer(lambda: ops.fused_sliced_matmul(x, pw.slices, pw.scale, **kw))
+        print(f"stacked K1 {name} ({MOE_STACK_CHECK} experts of {tuple(w.shape[1:])}, M = {m} an "
+              f"expert) bit-equal to its plain version: kernel {t:.3f} ms, plain "
+              f"{t_plain:.1f} ms  [{card}]")
+        del w, pw, x, y, yp  # w, a view, would keep its whole stack alive
+    del state, experts
+    torch.cuda.empty_cache()
+    check_k1_calls(timer, "moe_train", "qwen3-moe-235b-a22b, 1 layer", card, k1_plain)
+    torch.cuda.empty_cache()
+    scfg = get_smoke(MOE_ARCH)
+    train_plain(card, MOE_TRAIN_SMOKE, "qwen3-moe-smoke (2 x 16)",
+                lambda remat: train_launches(scfg.n_layers, 2, 16, remat=remat, per_layer=4,
+                                             stacks=3, experts=scfg.moe.n_experts))
+
+
 APPS = ("matmul_re", "monte_carlo", "linsolve", "kmeans", "cwt", "train_mlp", "inference_sweep")
-# arguments the apps run with in place of their defaults, on both sides: their plain
-# versions (train_mlp's programming noise, ~100 s at its 120 steps) outlasted the build
 FAITHFUL_APPS = ("matmul_re", "monte_carlo", "linsolve", "kmeans", "cwt")
 
 
@@ -3213,10 +3547,10 @@ def device_busy(loop, reqs, rep, card):
                k1_calls=ops.COUNTERS["fused_sliced_matmul"].count)
 
 
-def train_phases(timed, timer, qcfg, card, counters):
+def train_phases(timed, timer, qcfg, card, counters, k1_plain=None):
     timed("train", train, qcfg, card, counters)
     torch.cuda.empty_cache()
-    timed("check_k1_train", check_k1_train, timer, qcfg, card)
+    timed("check_k1_train", check_k1_calls, timer, "train", "qwen2-0.5b", card, k1_plain)
     torch.cuda.empty_cache()
     timed("train_plain", train_plain, card)
     timed("check_optim", check_optim, qcfg, card)
@@ -3228,7 +3562,8 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(prog="chip_smoke.py")
-    ap.add_argument("--only", choices=("train", "rwkv6", "moe", "jamba", "encdec"), default=None,
+    ap.add_argument("--only", choices=("train", "rwkv6", "moe", "jamba", "encdec", "rwkv6_train",
+                                       "moe_train"), default=None,
                     help="build the kernels and run this phase alone (no kernels line, no "
                          "final line)")
     args = ap.parse_args(argv)
@@ -3258,11 +3593,24 @@ def main(argv=None) -> int:
         build.library()
         return time.monotonic() - t0
 
-    # the apps' plain runs need no kernel: they take the card while nvcc builds
-    with ThreadPoolExecutor(1) as pool:
+    # the apps' plain runs and the train phases' plain K1 need no kernel: they take
+    # the card while nvcc builds.  The threads share modules: import them first, one
+    # thread at a time (two threads importing one package see it half made)
+    import importlib
+
+    for name in ("repro_torch.core.dpe", "repro_torch.kernels.ops", "repro_torch.launch.dryrun",
+                 *(f"repro_torch.apps.{app}" for app in APPS)):
+        importlib.import_module(name)
+    with ThreadPoolExecutor(2) as pool:
         built = pool.submit(build_kernels)
+        t0 = time.monotonic()
+        ahead = pool.submit(k1_plain_ahead, TRAIN_K1) if args.only is None else None
         plain_runs = timed("plain_apps", plain_apps) if args.only is None else None
         print(f"built kernels with nvcc in {built.result():.1f} s")
+        k1_plain = ahead.result() if ahead else {}
+        if ahead:
+            print(f"the train phases' plain K1 at their calls, beside the apps' plain runs: "
+                  f"done {time.monotonic() - t0:.1f} s after the start")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "build.log"), "w") as fh:
         fh.write(build.build_log())
@@ -3290,6 +3638,12 @@ def main(argv=None) -> int:
     if args.only == "encdec":
         timed("encdec", encdec, timer, card, counters)
         return 0
+    if args.only == "rwkv6_train":
+        timed("rwkv6_train", rwkv6_train, timer, card, counters)
+        return 0
+    if args.only == "moe_train":
+        timed("moe_train", moe_train, timer, card, counters)
+        return 0
     timed("check_k1", check_k1, timer, qcfg, summary)
     timed("check_k1_tiles", check_k1_tiles, timer, summary, card)
     timed("check_k2_k3", check_k2_k3, timer, qcfg, summary, card, floor)
@@ -3316,7 +3670,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     timed("encdec", encdec, timer, card, counters)
     torch.cuda.empty_cache()
-    train_phases(timed, timer, qcfg, card, counters)
+    train_phases(timed, timer, qcfg, card, counters, k1_plain.get("train"))
+    timed("rwkv6_train", rwkv6_train, timer, card, counters, k1_plain.get("rwkv6_train"))
+    torch.cuda.empty_cache()
+    timed("moe_train", moe_train, timer, card, counters, k1_plain.get("moe_train"))
+    torch.cuda.empty_cache()
     counters["sliced_matmul"] = summary["sliced_matmul"]["launches"]
     counters["flash_attention"] = summary["flash_attention"]["launches"]
     timed("run_apps", run_apps, card, plain_runs)

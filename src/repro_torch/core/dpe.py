@@ -44,6 +44,7 @@ __all__ = [
     "prepare_weight",
     "prepare_input",
     "program_weight",
+    "program_stack",
     "dpe_matmul",
     "dpe_matmul_prepared",
     "dpe_matmul_folded",
@@ -488,6 +489,33 @@ def program_weight(
     if cfg.mode == "fast":
         return FoldedWeight(fold_weight_noisy(w, cfg, key, kernels), t_prog=t_prog)
     return prepare_weight(w, cfg, key, kernels)._replace(t_prog=t_prog)
+
+
+def program_stack(
+    w: torch.Tensor,
+    cfg: DPEConfig,
+    key,
+    base: int = 0,
+    t_prog: float | None = None,
+    kernels: bool = True,
+) -> PreparedWeight | FoldedWeight:
+    """Program a weight stack w (E, K, N) for ``cfg`` (faithful or fast),
+    expert ``i`` with the key ``fold_in(key, base + i)``: one
+    preallocated (E, ...) tensor per part, written an expert at a time,
+    each expert's programming freed before the next."""
+    stack = None
+    for i in range(w.shape[0]):
+        pw = program_weight(w[i], cfg, fold_in(key, base + i), t_prog, kernels)
+        parts = (pw.w_eff,) if isinstance(pw, FoldedWeight) else (pw.slices, pw.scale)
+        if stack is None:
+            stack = [torch.empty((w.shape[0],) + tuple(t.shape), dtype=t.dtype, device=t.device)
+                     for t in parts]
+        for dst, src in zip(stack, parts):
+            dst[i].copy_(src)
+        del pw, parts
+    if len(stack) == 1:
+        return FoldedWeight(stack[0], t_prog)
+    return PreparedWeight(stack[0], stack[1], t_prog)
 
 
 def dpe_apply(

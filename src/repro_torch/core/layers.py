@@ -4,9 +4,12 @@
 ``mem_matmul`` is the paper's "hardware function": the forward pass runs
 through the simulated DPE, the backward pass applies the incoming error
 to the full-precision operands (straight-through estimator), so a model
-trains through it.  ``mem_linear`` is the paper's ``LinearMem``: the
-product runs through the simulated DPE (or digitally) and the bias is
-added digitally.  ``MemPolicy`` resolves every layer name to its own
+trains through it.  ``mem_matmul_stack`` is the same over a stack of
+expert weights (the reference ``vmap``s ``mem_matmul`` over them): one
+programming of the stack and one stacked product forward, the
+straight-through rule per expert backward.  ``mem_linear`` is the
+paper's ``LinearMem``: the product runs through the simulated DPE (or
+digitally) and the bias is added digitally.  ``MemPolicy`` resolves every layer name to its own
 ``DPEConfig`` (or ``None`` → digital): layer-wise mixed precision.
 """
 from __future__ import annotations
@@ -17,13 +20,14 @@ from dataclasses import dataclass, field
 
 import torch
 
-from .dpe import FoldedWeight, PreparedWeight, dpe_apply, dpe_matmul
+from .dpe import FoldedWeight, PreparedWeight, dpe_apply, dpe_matmul, program_stack
 from .engine import DPEConfig
 from .prng import fold_in
 
 __all__ = [
     "mem_matmul",
     "mem_matmul_prepared",
+    "mem_matmul_stack",
     "mem_linear",
     "MemPolicy",
     "layer_key",
@@ -57,6 +61,36 @@ def mem_matmul(x: torch.Tensor, w: torch.Tensor, key, cfg: DPEConfig,
     straight-through backward; ``key`` drives programming noise.
     Returns ``x``'s dtype."""
     return _MemMatmul.apply(x, w, key, cfg, kernels)
+
+
+class _MemMatmulStack(torch.autograd.Function):
+    """Forward: the stack programmed (expert ``i`` from ``fold_in(key,
+    base + i)``), one stacked product, the programmed stack dropped;
+    backward per expert the reference's straight-through rule, batched:
+    ``gx = g @ w.T`` in g's dtype, cast to x's; ``gw = x.T @ g`` in
+    float32, cast to w's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w, key, cfg, base, kernels):
+        ctx.save_for_backward(x, w)
+        prog = program_stack(w, cfg, key, base, kernels=kernels)
+        return dpe_apply(x, prog, w.shape[2], cfg, kernels).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = torch.bmm(g, w.transpose(1, 2).to(g.dtype)).to(x.dtype)
+        gw = torch.bmm(x.transpose(1, 2).float(), g.float())
+        return gx, gw.to(w.dtype), None, None, None, None
+
+
+def mem_matmul_stack(x: torch.Tensor, w: torch.Tensor, key, cfg: DPEConfig, base: int = 0,
+                     kernels: bool = True) -> torch.Tensor:
+    """Simulated-hardware ``x[i] @ w[i]`` for every expert ``i`` of x (E, M,
+    K) and w (E, K, N), expert ``i`` programmed with ``fold_in(key, base +
+    i)``; a faithful stack runs in one K1 launch.  Straight-through
+    gradients per expert.  Returns ``x``'s dtype."""
+    return _MemMatmulStack.apply(x, w, key, cfg, base, kernels)
 
 
 def mem_matmul_prepared(

@@ -16,12 +16,34 @@ equals the reference's bit for bit on the CPU
 each function's domain (the callers' are); no special-value handling
 beyond what the callers need.
 
-A trainer differentiates through ``exp``, ``log``, ``sum_last``,
-``sqrt``, ``rsqrt`` and :func:`logsumexp`: each is a
+A trainer differentiates through the replays: each is a
 ``torch.autograd.Function`` whose backward is JAX's own rule for the
-primitive (``g * y`` for ``exp``, ``g / x`` for ``log``, ``g`` broadcast
-for a sum, ``g * (0.5 / y)`` for ``sqrt``, ``g * (-0.5 * (y / x))`` for
-``rsqrt``), not the derivative of the polynomial that evaluates it.
+primitive as XLA's CPU backend compiles it, not the derivative of the
+polynomial that evaluates it:
+
+* ``exp``: ``g * y`` (flushed below the normal range); ``log``: ``g /
+  x``; ``sqrt``: ``g * (0.5 / y)``; ``rsqrt``: ``g * (-0.5 * (y / x))``;
+* ``sum_last``: ``g`` broadcast over the axis;
+* ``cumsum_last``: the reverse cumulative sum, in XLA's order for it
+  (:func:`rcumsum_last`);
+* ``tanh``: ``(g + g*y) * (1 - y)``, compiled as ``t = g * (1 - y)``
+  then ``t + t*y`` in one fused multiply-add;
+* ``ftz``: ``g`` where the value is kept (zero included), 0 where it is
+  flushed;
+* ``logistic``: ``g * (y * (1 - y))``; ``silu`` (``x * logistic(x)``):
+  ``g*s + (x*g) * (s * (1 - s))`` with the first product fused into the
+  sum;
+* ``softmax`` (``jax.nn.softmax``'s ``custom_jvp``, ``y * (x_dot -
+  sum(y * x_dot))``), as XLA simplifies its transpose: ``(g / s -
+  sum((g * (1 / (s*s))) * e)) * e`` over the unnormalised ``e`` and its
+  sum ``s``;
+* ``fma``: ``g * b``, ``g * a`` and ``g``, each summed over the axes it
+  broadcasts along (the last one in XLA's order);
+* :func:`logsumexp`: ``exp(x - m) * (g / sum)``.
+
+``tanh``, ``cumsum_last``, ``ftz``, ``logistic``, ``silu`` and
+``softmax`` equal ``jax.vjp`` of the jitted primitive bit for bit
+(``tests/test_torch_rwkv6_train.py``, ``tests/test_torch_moe_train.py``).
 
 RWKV6's decay replays XLA's CPU ``tanh`` (:func:`tanh`, Eigen's rational
 approximation) and its flush of float32 subnormals to zero
@@ -45,8 +67,8 @@ import numpy as np
 import torch
 
 __all__ = [
-    "fma", "log", "log1p", "exp", "erf_inv", "tanh", "ftz", "sum_last", "cumsum_last",
-    "logsumexp", "sqrt", "rsqrt", "pow", "cos", "sin",
+    "fma", "log", "log1p", "exp", "erf_inv", "tanh", "ftz", "logistic", "silu", "softmax",
+    "sum_last", "cumsum_last", "rcumsum_last", "logsumexp", "sqrt", "rsqrt", "pow", "cos", "sin",
 ]
 
 
@@ -72,7 +94,50 @@ def fma(a: torch.Tensor, b, c, *, wait: bool = True) -> torch.Tensor:
     passes ``wait=False``).  ``b`` and ``c`` may be Python or numpy
     float32 scalars, which enter the float64 arithmetic as scalars: no
     copy to the device, which would wait for it.  Results in the float32
-    normal range; the operands broadcast as ``torch.addcmul``'s."""
+    normal range; the operands broadcast as ``torch.addcmul``'s.  Under
+    autograd the gradient is ``g * b``, ``g * a`` and ``g``, each summed
+    over the axes its operand broadcasts along."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in (a, b, c)):
+        return _Fma.apply(a, b, c, wait)
+    return _fma(a, b, c, wait)
+
+
+def _shape(t):
+    return t.shape if isinstance(t, torch.Tensor) else None
+
+
+def _unbroadcast(t: torch.Tensor, shape) -> torch.Tensor | None:
+    """``t`` summed down to ``shape`` (``None`` for a scalar operand):
+    over the last axis in XLA's order (a broadcast's transpose is a sum),
+    over others by torch."""
+    if shape is None or t.shape == shape:
+        return None if shape is None else t
+    if len(shape) == t.dim() and shape[-1] == 1 and shape[:-1] == t.shape[:-1]:
+        return sum_last(t)[..., None]
+    return t.sum_to_size(shape)
+
+
+class _Fma(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, c, wait):
+        tensor_b = isinstance(b, torch.Tensor)
+        ctx.save_for_backward(a, b if tensor_b else None)
+        ctx.b, ctx.shapes = None if tensor_b else b, (_shape(a), _shape(b), _shape(c))
+        return _fma(a, b, c, wait)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        b = ctx.b if b is None else b
+        sa, sb, sc = ctx.shapes
+        need = ctx.needs_input_grad
+        return (_unbroadcast(g * b, sa) if need[0] else None,
+                _unbroadcast(g * a, sb) if need[1] else None,
+                _unbroadcast(g, sc) if need[2] else None, None)
+
+
+def _fma(a: torch.Tensor, b, c, wait: bool = True) -> torch.Tensor:
     a64 = a.double()
     b64 = _as_f64(b, a.device)
     c64 = _as_f64(c, a.device)
@@ -152,7 +217,7 @@ class _Exp(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (y,) = ctx.saved_tensors
-        return g * y
+        return _ftz_t(g * y)
 
 
 def log(y: torch.Tensor) -> torch.Tensor:
@@ -166,7 +231,8 @@ def log(y: torch.Tensor) -> torch.Tensor:
 def exp(x: torch.Tensor) -> torch.Tensor:
     """XLA's float32 ``exp`` (Cephes ``expf``): ``x = n ln2 + r``, a
     degree-5 polynomial in ``r``, times ``2**n``.  Gradient ``g * exp(x)``
-    (the output itself)."""
+    (the output itself), flushed to zero below the normal range as XLA's
+    CPU code flushes the product."""
     return _Exp.apply(x)
 
 
@@ -263,23 +329,138 @@ _TANH_DEN = (
 )
 
 
-def tanh(x: torch.Tensor) -> torch.Tensor:
-    """XLA's CPU float32 ``tanh``: ``x`` clamped to +-7.9988, ``x * p(x**2)
-    / q(x**2)`` with both polynomials in fused multiply-adds, and ``x``
-    itself where ``|x| < 0.0004``.  Finite inputs; no gradient rule (the
-    RWKV6 decay calls it, which serves but does not train:
-    :func:`repro_torch.models.model.loss_fn` refuses it)."""
+def _tanh(x: torch.Tensor) -> torch.Tensor:
     xc = torch.clamp(x, -_f(_TANH_CLAMP), _f(_TANH_CLAMP))
     x2 = xc * xc
     return torch.where(x.abs() < _f(_TANH_TINY), x,
                        (xc * _horner(x2, _TANH_NUM)) / _horner(x2, _TANH_DEN))
 
 
+class _Tanh(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = _tanh(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        t = g * (1.0 - y)
+        return fma(t, y, t)
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU float32 ``tanh``: ``x`` clamped to +-7.9988, ``x * p(x**2)
+    / q(x**2)`` with both polynomials in fused multiply-adds, and ``x``
+    itself where ``|x| < 0.0004``.  Finite inputs.  Gradient JAX's ``(g
+    + g*y) * (1 - y)`` as XLA compiles it: ``t = g * (1 - y)``, then ``t
+    + t*y`` in one fused multiply-add."""
+    return _Tanh.apply(x)
+
+
+def _ftz_t(x: torch.Tensor) -> torch.Tensor:
+    return torch.where(x.abs() < float(_TINY), x * 0.0, x)
+
+
+class _Ftz(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _ftz_t(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        flushed = (x.abs() < float(_TINY)) & (x != 0)
+        return torch.where(flushed, torch.zeros_like(g), g)
+
+
 def ftz(x: torch.Tensor) -> torch.Tensor:
     """``x`` with values below the float32 normal range flushed to zero of
     the same sign, as XLA's CPU code computes every float32 operation
-    (torch keeps subnormals, on the CPU and on a card).  Finite inputs."""
-    return torch.where(x.abs() < float(_TINY), x * 0.0, x)
+    (torch keeps subnormals, on the CPU and on a card).  Finite inputs.
+    Gradient ``g`` where the value is kept (zero included), 0 where it is
+    flushed (the flushed value is a constant zero)."""
+    return _Ftz.apply(x)
+
+
+def _logistic(x: torch.Tensor) -> torch.Tensor:
+    return _ftz_t(torch.ones_like(x) / (1.0 + _ftz_t(_exp(-x))))
+
+
+class _Logistic(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = _logistic(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * (y * (1.0 - y))
+
+
+def logistic(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` (``lax.logistic``) as XLA's CPU code computes
+    it: ``1 / (1 + exp(-x))`` with XLA's ``exp``, each result flushed to
+    zero below the normal range.  Gradient JAX's ``g * (y * (1 -
+    y))``."""
+    return _Logistic.apply(x)
+
+
+class _Silu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        s = _logistic(x)
+        ctx.save_for_backward(x, s)
+        return _ftz_t(x * s)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        return fma(g, s, (x * g) * (s * (1.0 - s)))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` (``x * sigmoid(x)``) as XLA's CPU code computes it,
+    :func:`logistic` and the product flushed to zero below the normal
+    range.  Gradient as XLA compiles JAX's: ``g*s + (x*g) * (s * (1 -
+    s))`` with ``g*s`` fused into the sum."""
+    return _Silu.apply(x)
+
+
+class _Softmax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        e = _exp(x - x.amax(dim=-1, keepdim=True))
+        s = _sum_last(e)[..., None]
+        ctx.save_for_backward(e, s)
+        return e / s
+
+    @staticmethod
+    def backward(ctx, g):
+        e, s = ctx.saved_tensors
+        a = g * (torch.ones_like(s) / (s * s))
+        if e.shape[-1] <= 32:  # one reduce, the product fused into each add
+            s2 = torch.zeros_like(s)
+            for j in range(e.shape[-1]):
+                s2 = _fma(a[..., j:j + 1], e[..., j:j + 1], s2, wait=False)
+        else:  # windowed sums of the rounded products
+            s2 = _sum_last(a * e)[..., None]
+        return (g / s + -s2) * e
+
+
+def softmax(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax`` over the last axis in float32: ``e = exp(x -
+    max)`` with XLA's ``exp``, ``e / sum(e)`` with the sum in XLA's order.
+    Gradient JAX's ``custom_jvp`` rule ``y * (x_dot - sum(y * x_dot))``,
+    transposed and simplified as XLA compiles it: ``(g / s - sum((g * (1
+    / (s*s))) * e)) * e``, the sum over at most 32 values one fused
+    multiply-add a value, from zero, over more the rounded products in
+    :func:`sum_last`'s order."""
+    return _Softmax.apply(x)
 
 
 def _seq_last(x: torch.Tensor) -> torch.Tensor:
@@ -326,18 +507,57 @@ def _scan16(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def cumsum_last(x: torch.Tensor) -> torch.Tensor:
-    """XLA's CPU float32 ``cumsum`` over the last axis: rows of 16
-    scanned in order (the axis zero-padded to whole rows), the rows'
-    totals scanned the same way, and each row's exclusive prefix added to
-    it; at most 16 values are scanned in order."""
+def _cumsum_last(x: torch.Tensor) -> torch.Tensor:
     n = x.shape[-1]
     if n <= 16:
         return _scan16(x)
     m = -(-n // 16)
     rows = _scan16(torch.nn.functional.pad(x, (0, m * 16 - n)).reshape(*x.shape[:-1], m, 16))
-    excl = torch.nn.functional.pad(cumsum_last(rows[..., 15])[..., :-1], (1, 0))
+    excl = torch.nn.functional.pad(_cumsum_last(rows[..., 15])[..., :-1], (1, 0))
     return (rows + excl[..., None]).reshape(*x.shape[:-1], m * 16)[..., :n]
+
+
+def _rscan16(x: torch.Tensor) -> torch.Tensor:
+    """Each position's suffix sum, added from the position forwards."""
+    out = x.clone()
+    n = x.shape[-1]
+    for t in range(1, n):
+        out[..., :n - t] = out[..., :n - t] + x[..., t:]
+    return out
+
+
+def rcumsum_last(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU float32 reverse ``cumsum`` over the last axis (the
+    gradient of :func:`cumsum_last`): rows of 16 (the axis zero-padded
+    at its end), each position's suffix within its row added from the
+    position forwards, the rows' totals summed the same way, and each
+    row's exclusive suffix of totals added to it."""
+    n = x.shape[-1]
+    if n <= 16:
+        return _rscan16(x)
+    m = -(-n // 16)
+    rows = _rscan16(torch.nn.functional.pad(x, (0, m * 16 - n)).reshape(*x.shape[:-1], m, 16))
+    excl = torch.nn.functional.pad(rcumsum_last(rows[..., 0])[..., 1:], (0, 1))
+    return (rows + excl[..., None]).reshape(*x.shape[:-1], m * 16)[..., :n]
+
+
+class _Cumsum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return _cumsum_last(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return rcumsum_last(g)
+
+
+def cumsum_last(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU float32 ``cumsum`` over the last axis: rows of 16
+    scanned in order (the axis zero-padded to whole rows), the rows'
+    totals scanned the same way, and each row's exclusive prefix added to
+    it; at most 16 values are scanned in order.  Gradient the reverse
+    cumulative sum in XLA's order (:func:`rcumsum_last`)."""
+    return _Cumsum.apply(x)
 
 
 def logsumexp(x: torch.Tensor) -> torch.Tensor:

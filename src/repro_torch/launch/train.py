@@ -20,6 +20,10 @@ The flags are the reference's, plus:
 * ``--remat {on,off}`` (default ``on``, the reference's): recompute each
   layer and each loss chunk in the backward pass.
 
+The step donates its state (the optimiser updates the parameters and
+moments in place), and on the card the launcher prints the peak device
+memory before its last line.
+
 Without ``--smoke`` the model is the architecture at its published
 widths, with random weights from ``PRNGKey(0)`` as the reference draws
 them; the batches are ``synthetic_batch(cfg, batch, seq, step)``.  The
@@ -81,6 +85,8 @@ def main(argv=None, *, return_state: bool = False, report: dict | None = None):
     if args.kernels == "on" and args.device != "cuda":
         raise ValueError("--kernels on needs --device cuda: the kernels run on the card only")
     dev = args.device
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     cfg = arch_configs.get_smoke(args.arch) if args.smoke else arch_configs.get(args.arch)
     if args.layers is not None:
         cfg = cfg.replace(n_layers=args.layers)
@@ -88,7 +94,7 @@ def main(argv=None, *, return_state: bool = False, report: dict | None = None):
     opt = adamw(lr=cosine_schedule(args.lr, warmup=5, total=args.steps))
     step_fn = make_train_step(
         cfg, opt, policy, microbatches=args.microbatches, compute_dtype=torch.float32,
-        loss_chunk=64, remat=args.remat == "on", kernels=args.kernels != "off",
+        loss_chunk=64, remat=args.remat == "on", kernels=args.kernels != "off", donate=True,
     )
 
     start_step = 0
@@ -126,6 +132,8 @@ def main(argv=None, *, return_state: bool = False, report: dict | None = None):
         wait_for_saves()
     if monitor.slow_steps:
         print(f"stragglers observed: {monitor.slow_steps}")
+    if dev == "cuda":
+        print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if history:
         print(f"final loss: {history[-1]:.4f} (start {history[0]:.4f})")
     return (history, state) if return_state else history

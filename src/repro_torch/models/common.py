@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.core import xmath
 from repro_torch.core.layers import MemPolicy, layer_key, mem_linear
@@ -39,6 +40,7 @@ __all__ = [
     "unstack_layers",
     "take_rows",
     "stack_layers",
+    "remat_call",
 ]
 
 
@@ -169,6 +171,15 @@ def stack_layers(make_layer, steps: int):
     for idx in range(1, steps):
         put(stacked, make_layer(idx), idx)
     return stacked
+
+
+def remat_call(fn, *args):
+    """``fn(*args)`` under a non-reentrant checkpoint that recomputes the
+    whole of ``fn`` in the backward pass (no early stop: every hardware
+    layer of the region programs and runs again, as in the reference's
+    ``nothing_saveable`` recompute)."""
+    with _ckpt.set_checkpoint_early_stop(False):
+        return _ckpt.checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def pget(prepared: dict | None, key: str):

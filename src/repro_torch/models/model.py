@@ -40,7 +40,6 @@ import functools
 
 import torch
 import torch.nn.functional as F
-from torch.utils import checkpoint as _ckpt
 
 from repro_torch.core import xmath
 from repro_torch.core.layers import DIGITAL, MemPolicy
@@ -54,6 +53,7 @@ from .common import (
     make_norm_params,
     norm,
     pget,
+    remat_call,
     stack_layers,
     take_rows,
     uniform_init,
@@ -187,15 +187,6 @@ def _sinusoid(positions: torch.Tensor, d: int, n: int) -> torch.Tensor:
     return _sinusoid_table(n, d, positions.device)[positions.long()]
 
 
-def _remat(fn, *args):
-    """``fn(*args)`` under a non-reentrant checkpoint that recomputes the
-    whole of ``fn`` in the backward pass (no early stop: every hardware
-    layer of the region programs and runs again, as in the reference's
-    ``nothing_saveable`` recompute)."""
-    with _ckpt.set_checkpoint_early_stop(False):
-        return _ckpt.checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
-
-
 def forward(
     params,
     cfg: ArchConfig,
@@ -245,7 +236,7 @@ def forward(
                       attn_schedule="tri", kernels=kernels,
                       prepared=None if prog_seg is None else layer_slice(prog_seg, idx))
             if remat:
-                x = _remat(lambda x, p_l=layers[idx], kw=kw:
+                x = remat_call(lambda x, p_l=layers[idx], kw=kw:
                            block_forward(p_l, x, cfg, tmpl, **kw)[0], x)
                 continue
             x, st = block_forward(layers[idx], x, cfg, tmpl, **kw)
@@ -277,20 +268,22 @@ def loss_fn(
     ``rng``, as the reference's), :func:`~repro_torch.core.xmath.logsumexp`
     and the picked logit, and with ``remat`` is recomputed in the
     backward pass.  The sum over chunks and the count run in order from
-    zero, then ``tot / max(cnt, 1)``.  Raises ``NotImplementedError`` for
-    RWKV6, Mamba and MoE layers, encoder-decoder and vision-prefixed
-    models (their gradients are not held against the reference's)."""
+    zero, then ``tot / max(cnt, 1)``.  Trains dense attention, RWKV6 and
+    MoE layers (an MoE layer's expert stacks straight-through, one
+    programming of a stack a product); raises ``NotImplementedError``
+    for Mamba layers (a hybrid's too), encoder-decoder and
+    vision-prefixed models (their gradients are not held against the
+    reference's)."""
     if cfg.encoder is not None:
         raise NotImplementedError("training encoder-decoder models is not ported to "
                                   "repro_torch yet")
     if cfg.vision_prefix:
         raise NotImplementedError("training vision-prefixed models is not ported to "
                                   "repro_torch yet")
-    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
-    if any(kind == "ssm" for kind, _ in kinds):
-        raise NotImplementedError("training ssm layers is not ported to repro_torch yet")
-    if any(has_moe for _, has_moe in kinds):
-        raise NotImplementedError("training MoE layers is not ported to repro_torch yet")
+    if any(cfg.layer_kind(i)[0] == "ssm" for i in range(cfg.n_layers)) and \
+            cfg.ssm.kind != "rwkv6":
+        raise NotImplementedError("training ssm layers of kind Mamba is not ported to "
+                                  "repro_torch yet")
     x = forward(
         params, cfg, batch, policy=policy, rng=rng, mode="train",
         compute_dtype=compute_dtype, remat=remat, kernels=kernels,
@@ -319,7 +312,7 @@ def loss_fn(
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(s // ck):
         xs, ls = x[:, i * ck:(i + 1) * ck], labels[:, i * ck:(i + 1) * ck]
-        t, c = _remat(chunk, xs, ls) if remat else chunk(xs, ls)
+        t, c = remat_call(chunk, xs, ls) if remat else chunk(xs, ls)
         tot, cnt = tot + t, cnt + c
     return tot / torch.clamp_min(cnt, 1.0)
 

@@ -14,8 +14,17 @@ stacks, one stacked product per projection: a faithful stack is one
 launch of K1 over every expert (:func:`repro_torch.core.dpe.dpe_matmul_prepared`).
 The per-expert keys are the reference's: ``fold_in(layer_key(rng,
 f"{name}.experts"), i)`` with ``i`` in ``[0, E)`` for ``wi``, ``[E, 2E)``
-for ``wg`` and ``[2E, 3E)`` for ``wo``.  Without programmed state the
-stacks are programmed on the fly from those keys (per-call programming).
+for ``wg`` and ``[2E, 3E)`` for ``wo``.  Without programmed state each
+stack is programmed on the fly from those keys just before its product
+and dropped after it (:func:`repro_torch.core.layers.mem_matmul_stack`,
+straight-through gradients per expert: the trainer's path).
+
+Gradients are the reference's rules: the router's softmax as XLA
+compiles ``jax.nn.softmax``'s, the top-k values scattered back to the
+chosen experts, the dispatch gather's transpose summing a token's slots
+in slot order (deterministic on a card too), the combine's fused
+multiply-adds ``g * wk`` to the values and ``g * vals`` (summed over the
+width in XLA's order) to the weights.
 
 Arithmetic held to the reference's: the router's softmax replays XLA's
 CPU ``exp`` and sum; ``top_k`` breaks ties towards the lower expert index
@@ -30,9 +39,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import xmath
-from repro_torch.core.dpe import FoldedWeight, PreparedWeight, program_weight
-from repro_torch.core.layers import layer_key, mem_matmul_prepared
-from repro_torch.core.prng import fold_in, split
+from repro_torch.core.dpe import program_stack
+from repro_torch.core.layers import layer_key, mem_matmul_prepared, mem_matmul_stack
+from repro_torch.core.prng import split
 
 from .common import activation, dense, make_dense_params, pget, uniform_init
 
@@ -69,26 +78,11 @@ def init_moe_params(key, cfg, dtype=torch.float32, device="cuda"):
 
 def program_experts(experts: dict, cfg, key, t_prog=None, kernels: bool = True) -> dict:
     """Program the three expert stacks under ``cfg`` (faithful or fast)
-    with the reference's per-expert keys ``fold_in(key, i)``.  Each stack
-    is written into one preallocated (E, ...) tensor an expert at a time,
-    each expert's state freed before the next is programmed."""
+    with the reference's per-expert keys ``fold_in(key, j * E + i)``
+    (:func:`~repro_torch.core.dpe.program_stack`)."""
     e = experts["wi"].shape[0]
-    out = {}
-    for j, name in enumerate(_PROJ):
-        w = experts[name]
-        stack = None
-        for i in range(e):
-            pw = program_weight(w[i], cfg, fold_in(key, j * e + i), t_prog, kernels)
-            parts = (pw.w_eff,) if isinstance(pw, FoldedWeight) else (pw.slices, pw.scale)
-            if stack is None:
-                stack = [torch.empty((e,) + tuple(t.shape), dtype=t.dtype, device=t.device)
-                         for t in parts]
-            for dst, src in zip(stack, parts):
-                dst[i].copy_(src)
-            del pw, parts
-        out[name] = (FoldedWeight(stack[0], t_prog) if len(stack) == 1
-                     else PreparedWeight(stack[0], stack[1], t_prog))
-    return out
+    return {name: program_stack(experts[name], cfg, key, j * e, t_prog, kernels)
+            for j, name in enumerate(_PROJ)}
 
 
 def _dispatch_indices(eidx: torch.Tensor, n_experts: int, capacity: int):
@@ -133,11 +127,43 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+class _Dispatch(torch.autograd.Function):
+    """The gather of a row's tokens into its expert buffers, ``buf[b, j] =
+    xpad[b, buf_idx[b, j]]`` (x with the zero padding token appended).
+    Backward: a token's gradient sums the buffer slots of its valid
+    choices from zero in slot order, as XLA's CPU scatter-add (the
+    gather's transpose) does; the same bits on a card, where a scatter-add
+    adds with atomics, in no fixed order."""
+
+    @staticmethod
+    def forward(ctx, x, buf_idx, slot, valid, k):
+        b, s, d = x.shape
+        ctx.save_for_backward(slot, valid)
+        ctx.k = k
+        xpad = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)
+        return torch.gather(xpad, 1, buf_idx[..., None].expand(b, buf_idx.shape[1], d))
+
+    @staticmethod
+    def backward(ctx, g):
+        slot, valid = ctx.saved_tensors
+        b, _, d = g.shape
+        k = ctx.k
+        s = slot.shape[1] // k
+        slot_k, valid_k = slot.reshape(b, s, k), valid.reshape(b, s, k)
+        order = torch.argsort(torch.where(valid_k, slot_k, g.shape[1]), dim=-1, stable=True)
+        slot_k, valid_k = torch.gather(slot_k, 2, order), torch.gather(valid_k, 2, order)
+        gx = g.new_zeros((b, s, d))
+        for kk in range(k):
+            vals = torch.gather(g, 1, slot_k[:, :, kk, None].expand(b, s, d))
+            gx = gx + torch.where(valid_k[:, :, kk, None], vals, torch.zeros_like(vals))
+        return gx, None, None, None, None
+
+
 def _softmax(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softmax`` over the last axis in float32 with XLA's CPU
-    ``exp`` and summation order."""
-    e = xmath.exp(x - x.amax(dim=-1, keepdim=True))
-    return e / xmath.sum_last(e)[..., None]
+    ``exp`` and summation order, and its gradient as XLA compiles JAX's
+    rule (:func:`~repro_torch.core.xmath.softmax`)."""
+    return xmath.softmax(x)
 
 
 def moe_block(p, x, cfg, *, policy, rng, name, prepared=None, kernels=True):
@@ -153,22 +179,24 @@ def moe_block(p, x, cfg, *, policy, rng, name, prepared=None, kernels=True):
     top_p = top_p / torch.clamp_min(xmath.sum_last(top_p), 1e-9)[..., None]
 
     buf_idx, slot, valid, _ = _dispatch_indices(top_e, e, cap)
-    xpad = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)
-    buf = torch.gather(xpad, 1, buf_idx[..., None].expand(b, e * cap, d))
-    buf = buf.reshape(b, e, cap, d)
+    buf = _Dispatch.apply(x, buf_idx, slot, valid, k).reshape(b, e, cap, d)
     ex = p["experts"]
     mem_cfg = policy.config_for(f"{name}.experts")
     if mem_cfg is not None and mem_cfg.mode != "digital":
         prog = pget(prepared, "experts")
-        if prog is None:  # per-call: program the stacks from the same keys
-            prog = program_experts(ex, mem_cfg, layer_key(rng, f"{name}.experts"),
-                                   kernels=kernels)
         bufe = buf.transpose(0, 1).reshape(e, b * cap, d)
-        f = ex["wi"].shape[2]
-        h = mem_matmul_prepared(bufe, prog["wi"], f, mem_cfg, kernels)
-        g = mem_matmul_prepared(bufe, prog["wg"], f, mem_cfg, kernels)
-        h = activation(g, cfg.act) * h
-        out = mem_matmul_prepared(h, prog["wo"], d, mem_cfg, kernels)
+        if prog is None:  # per-call: each stack programmed from its keys, straight-through
+            key = layer_key(rng, f"{name}.experts")
+            h = mem_matmul_stack(bufe, ex["wi"], key, mem_cfg, 0, kernels)
+            g = mem_matmul_stack(bufe, ex["wg"], key, mem_cfg, e, kernels)
+            h = activation(g, cfg.act) * h
+            out = mem_matmul_stack(h, ex["wo"], key, mem_cfg, 2 * e, kernels)
+        else:
+            f = ex["wi"].shape[2]
+            h = mem_matmul_prepared(bufe, prog["wi"], f, mem_cfg, kernels)
+            g = mem_matmul_prepared(bufe, prog["wg"], f, mem_cfg, kernels)
+            h = activation(g, cfg.act) * h
+            out = mem_matmul_prepared(h, prog["wo"], d, mem_cfg, kernels)
         out = out.reshape(e, b, cap, d).transpose(0, 1)
     else:
         h = torch.einsum("becd,edf->becf", buf, ex["wi"].to(buf.dtype))

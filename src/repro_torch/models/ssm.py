@@ -40,7 +40,7 @@ import torch
 from repro_torch.core import xmath
 from repro_torch.core.prng import split
 
-from .common import dense, make_dense_params, pget, row_mean, uniform_init
+from .common import dense, make_dense_params, pget, remat_call, row_mean, uniform_init
 
 __all__ = [
     "init_rwkv6_params",
@@ -102,8 +102,10 @@ def _exp(x: torch.Tensor) -> torch.Tensor:
 
 def _silu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.silu`` as XLA's CPU code computes it: ``x * (1 / (1 +
-    exp(-x)))``, each result flushed to zero below the normal range."""
-    return xmath.ftz(x * xmath.ftz(torch.ones_like(x) / (1.0 + _exp(-x))))
+    exp(-x)))``, each result flushed to zero below the normal range, and
+    its gradient as XLA compiles JAX's (:func:`~repro_torch.core.xmath.silu`
+    over :func:`~repro_torch.core.xmath.logistic`)."""
+    return xmath.silu(x)
 
 
 def _wkv_scan(r, k, v, w, u, state):
@@ -140,7 +142,10 @@ def _wkv_chunked(r, k, v, w, u, state, chunk: int = WKV_CHUNK, group: int = WKV_
     fewer launches (on the CPU bit-equal to one chunk at a time; on a
     card the batched products may take other summation orders, and a
     4,096-token prefill takes a third of the time: ``tools/wkv_group.py``).
-    Same arguments and results as :func:`_wkv_scan`."""
+    Under autograd each group is checkpointed, as the reference
+    checkpoints each chunk: the backward pass recomputes a group's
+    pairwise exponents instead of keeping every group's (the same
+    bits).  Same arguments and results as :func:`_wkv_scan`."""
     b, s, h, n = r.shape
     c = min(chunk, s)
     pad = (-s) % c
@@ -149,32 +154,45 @@ def _wkv_chunked(r, k, v, w, u, state, chunk: int = WKV_CHUNK, group: int = WKV_
             a, (0, 0, 0, 0, 0, pad), value=value)
         r, k, v, w = zp(r), zp(k), zp(v), zp(w, 1.0)
     nc = r.shape[1] // c
-    tri = torch.ones((c, c), dtype=torch.bool, device=r.device).tril(-1)  # s <= t - 1
-    mask = tri[None, None, :, :, None, None]
-    bonus = u[None, None, None]
     outs = []
     for g0 in range(0, nc, group):
         m = min(group, nc - g0)
-        rt, kt, vt, wt = (a[:, g0 * c:(g0 + m) * c].reshape(b, m, c, h, n)
-                          for a in (r, k, v, w))  # (B, G, C, H, N)
-        logw = xmath.log(torch.clamp_min(wt, 1e-37))
-        lw = xmath.cumsum_last(logw.movedim(2, -1)).movedim(-1, 2)  # inclusive
-        lw_prev = lw - logw
-        r_dec = rt * _exp(lw_prev)
-        d = lw_prev[:, :, :, None] - lw[:, :, None]  # (B, G, C_t, C_s, H, N)
-        e = _exp(torch.where(mask, d, torch.full_like(d, float("-inf"))))
-        a_intra = torch.einsum("bgthn,bgshn,bgtshn->bgths", rt, kt, e)
-        del d, e
-        intra = torch.einsum("bgths,bgshv->bgthv", a_intra, vt)
-        diag = torch.einsum("bgthn,bgthn->bgth", rt, bonus * kt)[..., None] * vt
-        lw_end = lw[:, :, -1:]
-        kv = torch.einsum("bgshn,bgshv->bghnv", kt * _exp(lw_end - lw), vt)
-        decay = _exp(lw_end[:, :, 0])[..., None]  # (B, G, H, N, 1)
-        for j in range(m):
-            out = torch.einsum("bthn,bhnv->bthv", r_dec[:, j], state)
-            outs.append((out + intra[:, j]) + diag[:, j])
-            state = decay[:, j] * state + kv[:, j]
+        part = [a[:, g0 * c:(g0 + m) * c].reshape(b, m, c, h, n) for a in (r, k, v, w)]
+        if torch.is_grad_enabled():
+            out, state = remat_call(_wkv_group, *part, u, state)
+        else:
+            out, state = _wkv_group(*part, u, state)
+        outs.append(out)
     return torch.cat(outs, dim=1)[:, :s], state
+
+
+def _wkv_group(rt, kt, vt, wt, u, state):
+    """One group of :func:`_wkv_chunked`: rt / kt / vt / wt (B, G, C, H, N),
+    the state carried in; returns (out (B, G*C, H, N), the state after the
+    group)."""
+    c = rt.shape[2]
+    tri = torch.ones((c, c), dtype=torch.bool, device=rt.device).tril(-1)  # s <= t - 1
+    mask = tri[None, None, :, :, None, None]
+    bonus = u[None, None, None]
+    logw = xmath.log(torch.clamp_min(wt, 1e-37))
+    lw = xmath.cumsum_last(logw.movedim(2, -1)).movedim(-1, 2)  # inclusive
+    lw_prev = lw - logw
+    r_dec = rt * _exp(lw_prev)
+    d = lw_prev[:, :, :, None] - lw[:, :, None]  # (B, G, C_t, C_s, H, N)
+    e = _exp(torch.where(mask, d, torch.full_like(d, float("-inf"))))
+    a_intra = torch.einsum("bgthn,bgshn,bgtshn->bgths", rt, kt, e)
+    del d, e
+    intra = torch.einsum("bgths,bgshv->bgthv", a_intra, vt)
+    diag = torch.einsum("bgthn,bgthn->bgth", rt, bonus * kt)[..., None] * vt
+    lw_end = lw[:, :, -1:]
+    kv = torch.einsum("bgshn,bgshv->bghnv", kt * _exp(lw_end - lw), vt)
+    decay = _exp(lw_end[:, :, 0])[..., None]  # (B, G, H, N, 1)
+    outs = []
+    for j in range(rt.shape[1]):
+        out = torch.einsum("bthn,bhnv->bthv", r_dec[:, j], state)
+        outs.append((out + intra[:, j]) + diag[:, j])
+        state = decay[:, j] * state + kv[:, j]
+    return torch.cat(outs, dim=1), state
 
 
 def rwkv6_block(p, x, cfg, *, policy, rng, name, state=None, x_prev=None, prepared=None,

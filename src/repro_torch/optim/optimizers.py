@@ -27,6 +27,17 @@ order fixed by the shape alone: the same bits on the CPU and on a card.
 For a 1-D leaf that is XLA's order; over a 2-D leaf XLA adds in 2-D
 windows, which the port does not replay (a few ulps of the sum).
 ``rsqrt`` is the correctly rounded one (XLA's is within one ulp).
+
+Memory: the float64 replays of a fused multiply-add hold several
+float64 copies of their operands, 6.4 GB each on an 805 M-element expert
+stack.  AdamW's update is elementwise, so it runs a leaf in slabs of
+``SLAB`` elements of the flattened leaf (the same bits), and clipping
+scales each slab of a gradient as it is read instead of copying the
+gradients.  AdamW's ``update(..., inplace=True)`` writes the new
+parameters and moments into the old tensors (the reference's buffer
+donation), so a step holds one copy of them: a model whose parameters,
+gradients and two moments fill most of the card trains.  Adafactor and
+SGD return new tensors only (``Optimizer.inplace`` is false).
 """
 from __future__ import annotations
 
@@ -51,13 +62,17 @@ __all__ = [
 ]
 
 _F = np.float32
+SLAB = 1 << 25  # elements of a leaf that AdamW's update computes at once
 
 
 @dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Any], Any]
-    update: Callable[[Any, Any, Any, Any], tuple]
-    # update(grads, state, params, step) -> (new_params, new_state)
+    update: Callable[..., tuple]
+    # update(grads, state, params, step) -> (new_params, new_state); where
+    # ``inplace`` is true, update(..., inplace=True) writes the results into
+    # (and returns them as) params and state
+    inplace: bool = False
 
 
 def _map(fn, *trees) -> list:
@@ -115,6 +130,13 @@ def global_norm(grads) -> torch.Tensor:
     return xmath.sqrt(total)
 
 
+def _clip_scale(grads, max_norm) -> torch.Tensor:
+    """``min(1, max_norm / max(norm, 1e-12))`` of the global norm."""
+    norm = global_norm(grads)
+    return torch.minimum(
+        torch.ones_like(norm), _scalar(max_norm, norm) / torch.clamp_min(norm, _F(1e-12)))
+
+
 def clip_by_global_norm(grads, max_norm):
     """Scale ``grads`` so their global L2 norm is at most ``max_norm``;
     returns ``(grads, norm)``.  The scale multiplies in each gradient's
@@ -137,16 +159,17 @@ def adamw(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.01, clip=1.0):
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
     @torch.no_grad()
-    def update(grads, state, params, step):
-        if clip:
-            grads, _ = clip_by_global_norm(grads, clip)
+    def update(grads, state, params, step, inplace: bool = False):
+        scale = _clip_scale(grads, clip) if clip else None
         s = int(step)
         t = _F(_F(s) + _F(1.0))
         lr_t, bc1 = _F(lr_fn(s)), _F(_F(1.0) - xmath.pow(b1, t))
         bc2 = _F(_F(1.0) - xmath.pow(b2, t))
 
-        def upd(g, m, v, p):
+        def slab(g, m, v, p):
             k = lambda v: _scalar(v, g)  # noqa: E731
+            if scale is not None:
+                g = g * scale.to(g.dtype)
             g = g.to(torch.float32)
             pf = p.to(torch.float32)
             m = fma(m, k(b1), k(1 - b1) * g)
@@ -155,11 +178,21 @@ def adamw(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.01, clip=1.0):
             u = fma(pf, k(weight_decay), q)
             return fma(u, k(-lr_t), pf).to(p.dtype), m, v
 
+        def upd(g, m, v, p):
+            outs = (p, m, v) if inplace else tuple(
+                torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (p, m, v))
+            flat = [t.reshape(-1) for t in (g, m, v, p)]
+            dst = [t.view(-1) for t in outs]
+            for a in range(0, p.numel(), SLAB):
+                for d, r in zip(dst, slab(*(t[a:a + SLAB] for t in flat))):
+                    d[a:a + SLAB].copy_(r)
+            return outs
+
         out = _map(upd, grads, state["m"], state["v"], params)
         pick = lambda i: tree_unflatten(params, [o[i] for o in out])  # noqa: E731
         return pick(0), {"m": pick(1), "v": pick(2)}
 
-    return Optimizer(init=init, update=update)
+    return Optimizer(init=init, update=update, inplace=True)
 
 
 def adafactor(lr=1e-2, decay=0.8, eps=1e-30, clip=1.0, min_dim=128):

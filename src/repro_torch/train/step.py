@@ -3,8 +3,10 @@ gradient of the (memory-policy-aware) loss by autograd, optional
 gradient accumulation over microbatches, optional int8 error-feedback
 gradient compression, then the optimiser update.
 
-The step is a function of ``(state, batch)`` that returns a new state
-(the old one is not modified).  Programming noise is drawn anew every
+The step is a function of ``(state, batch)`` that returns a new state;
+the old one is not modified unless the step donates it (``donate``: the
+optimiser writes the new parameters and moments into the old tensors,
+as the reference's ``donate_argnums`` lets XLA do).  Programming noise is drawn anew every
 step from ``fold_in(PRNGKey(seed), step)``: every hardware layer
 re-programs its weights after each update (paper §3.4), through the
 straight-through estimator of :mod:`repro_torch.core.layers`.
@@ -61,6 +63,7 @@ def make_train_step(
     grad_compression=None,  # Optional[GradCompression]
     seed: int = 0,
     kernels: bool = True,
+    donate: bool = False,
 ):
     """``train_step(state, batch) -> (state, {"loss", "grad_norm"})``.
 
@@ -68,7 +71,12 @@ def make_train_step(
     losses and gradients are summed from float32 zeros, then multiplied
     by the float32 ``1 / microbatches`` (XLA's form of the reference's
     division by the constant).  ``kernels=False`` runs the plain versions
-    of the kernels on a card."""
+    of the kernels on a card.  With ``donate`` the new parameters and
+    optimiser state are written into ``state``'s tensors (one copy of
+    them on the card instead of two during the update); it needs an
+    optimiser that updates in place (``optimizer.inplace``: AdamW)."""
+    if donate and not optimizer.inplace:
+        raise ValueError("donate needs an optimiser that updates in place (adamw)")
     policy = policy if policy is not None else MemPolicy(default=None)
     base_rng = PRNGKey(seed)
 
@@ -102,7 +110,9 @@ def make_train_step(
             grads = tree_map(lambda g: g * inv.to(g.dtype), grads)
         if grad_compression is not None:
             grads, state = grad_compression.apply(grads, state)
-        new_params, new_opt = optimizer.update(grads, state["opt"], params, step)
+        args = (grads, state["opt"], params, step)
+        new_params, new_opt = (optimizer.update(*args, inplace=True) if donate
+                               else optimizer.update(*args))
         new_state = dict(state)
         new_state.update(params=new_params, opt=new_opt, step=step + 1)
         return new_state, {"loss": loss, "grad_norm": global_norm(grads)}

@@ -30,7 +30,13 @@ The port's own contracts: a request packed next to strangers decodes
 as alone, tokens and logits (batched == solo: a row's choices go
 to distinct experts, C >= 8 >= k, and ``dynamic_row`` ranges each row
 alone); the launcher's ``--requests`` ranges the expert stacks per row;
-the trainer refuses MoE layers.
+the trainer trains both smoke configs (``test_trainer_refuses_moe``,
+named when the trainer refused MoE layers): ``loss_fn`` on 16 tokens and
+its gradients against the reference's jitted ``value_and_grad`` (loss
+within rel 1e-5; every gradient within max rel 1e-4), and ``python -m
+repro_torch.launch.train --arch <arch> --smoke`` (2 steps, batch 2 x 16)
+against the reference's launcher, every loss within rel 1e-5;
+``tests/test_torch_moe_train.py`` holds the rest of training.
 """
 import functools
 
@@ -46,7 +52,9 @@ from repro.core import dpe as jdpe
 from repro.core import spec as jspec
 from repro.core.layers import MemPolicy as JMemPolicy
 from repro.launch import serve as j_serve
+from repro.launch import train as j_train
 from repro.models import init_params as j_init_params
+from repro.models import loss_fn as j_loss_fn
 from repro.models.model import decode_step as j_decode_step
 from repro.models.model import forward as j_forward
 from repro.serve import Request as JRequest
@@ -57,9 +65,10 @@ from repro.serve.engine import make_prefill_step as j_make_prefill_step
 from repro_torch.configs import get_smoke
 from repro_torch.core import DPEConfig, MemPolicy, spec
 from repro_torch.core import dpe as tdpe
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.launch.dryrun import make_policy
 from repro_torch.models import decode_step, forward, init_params, loss_fn, program_params
+from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.serve import Request, ServeConfig, ServeLoop, greedy_generate
 from repro_torch.serve.engine import make_prefill_step
 
@@ -281,8 +290,24 @@ def test_requests_mode_ranges_expert_rows_alone(capsys):
     assert pol.config_for("L.attn.router") is None
 
 
-def test_trainer_refuses_moe(model):
-    toks = torch.from_numpy(model["prompts"]).long()
-    with pytest.raises(NotImplementedError, match="training MoE layers"):
-        loss_fn(model["params"], model["cfg"], {"tokens": toks, "labels": toks},
-                compute_dtype=torch.float32)
+def test_trainer_refuses_moe(model, capsys):
+    """The loss and the train launcher train the smoke config and match
+    the reference (the name is from when they refused it)."""
+    toks = model["prompts"].repeat(2, axis=1)
+    labels = np.roll(toks, -1, 1)
+    labels[0, -3:] = -1
+    want_l, want_g = jax.jit(jax.value_and_grad(lambda p: j_loss_fn(
+        p, model["jcfg"], {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)},
+        compute_dtype=jnp.float32, loss_chunk=12)))(model["jparams"])
+    p = tree_map(lambda t: t.clone().requires_grad_(True), model["params"])
+    loss = loss_fn(p, model["cfg"], {"tokens": torch.from_numpy(toks),
+                                      "labels": torch.from_numpy(labels)},
+                   compute_dtype=torch.float32, loss_chunk=12)
+    got_g = torch.autograd.grad(loss, tree_leaves(p))
+    assert abs(float(loss) - float(want_l)) <= 1e-5 * abs(float(want_l))
+    assert max(rel_max(b, a) for a, b in zip(jax.tree.leaves(want_g), got_g)) <= 1e-4
+    args = ["--arch", model["arch"], "--smoke", "--steps", "2", "--batch", "2", "--seq", "16"]
+    want = j_train.main(args)
+    got = train.main(args + ["--device", "cpu"])
+    assert len(got) == 2 and all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(got, want))
+    assert "final loss:" in capsys.readouterr().out

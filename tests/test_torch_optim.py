@@ -216,6 +216,44 @@ def test_optimizer_updates_match_reference(name, n_updates):
             assert rel <= tol, rel
 
 
+@pytest.mark.parametrize("inplace", [False, True])
+def test_adamw_slabs_bitwise_to_whole_leaves(monkeypatch, inplace):
+    """AdamW with clipping updates a leaf in slabs of ``SLAB`` elements:
+    slabs of 1,000 (two leaves split, each with a ragged last slab) give
+    the bits of one slab a leaf, out of place and in place (where the
+    results are the old tensors)."""
+    from repro_torch.optim import optimizers
+
+    opt = T.adamw(lr=1e-3)
+    rng = np.random.default_rng(3)
+    p0 = _torch(_tree(1.0, rng))
+    grads = [_torch(_tree(1e-2, rng)) for _ in range(2)]
+    assert float(global_norm(grads[0])) > 1.0  # the clipping scales
+    runs = []
+    for slab in (optimizers.SLAB, 1000):
+        monkeypatch.setattr(optimizers, "SLAB", slab)
+        p = jax.tree.map(torch.clone, p0)
+        s = opt.init(p)
+        for step, g in enumerate(grads):
+            old = tree_leaves((p, s))
+            p, s = opt.update(g, s, p, torch.tensor(step, dtype=torch.int32), inplace=inplace)
+            new = tree_leaves((p, s))
+            assert all((a is b) == inplace for a, b in zip(old, new))
+        runs.append(tree_leaves((p, s)))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_donate_needs_an_inplace_optimizer():
+    """Only AdamW updates in place: a donating step with another
+    optimiser is refused when it is made."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.train import make_train_step
+
+    assert T.adamw().inplace and not T.adafactor().inplace and not T.sgd().inplace
+    with pytest.raises(ValueError, match="in place"):
+        make_train_step(get_smoke("qwen2-0.5b"), T.adafactor(), donate=True)
+
+
 def test_global_norm_of_vectors_bitwise():
     """Over 1-D leaves the port's whole-leaf sum is XLA's order."""
     rng = np.random.default_rng(2)

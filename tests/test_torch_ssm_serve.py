@@ -31,8 +31,14 @@ The port's own contracts (no reference involved):
   ``block_verify`` refuse rwkv6 as the reference's do; the trainer's
   loss, the paged cache and the chunk / verify blocks refuse Mamba layers
   and hybrid groups (a hybrid's MoE layers too);
-* the trainer (``loss_fn`` and ``python -m repro_torch.launch.train``)
-  refuses rwkv6: its gradients are not ported yet.
+* the trainer trains rwkv6-smoke (``test_trainer_refuses_rwkv6``, named
+  when the trainer refused it): ``loss_fn`` on 16 tokens (the scan) and
+  its gradients against the reference's jitted ``value_and_grad`` (loss
+  within rel 1e-5, measured bitwise; every gradient within max rel 1e-4,
+  measured 1.7e-5), and ``python -m repro_torch.launch.train --arch
+  rwkv6-1.6b --smoke`` (2 steps, batch 2 x 16) against the reference's
+  launcher, every loss within rel 1e-5 (measured 7.3e-8);
+  ``tests/test_torch_rwkv6_train.py`` holds the rest of training.
 """
 import jax
 import jax.numpy as jnp
@@ -47,7 +53,9 @@ from repro.core import dpe as jdpe
 from repro.core import spec as jspec
 from repro.core.layers import MemPolicy as JMemPolicy
 from repro.launch import serve as j_serve
+from repro.launch import train as j_train
 from repro.models import init_params as j_init_params
+from repro.models import loss_fn as j_loss_fn
 from repro.models import transformer as jtransformer
 from repro.models.model import decode_step as j_decode_step
 from repro.models.model import forward as j_forward
@@ -71,7 +79,7 @@ from repro_torch.models import (
 )
 from repro_torch.models import transformer as ttransformer
 from repro_torch.models.config import MoEConfig, SSMConfig
-from repro_torch.models.common import layer_slice
+from repro_torch.models.common import layer_slice, tree_leaves, tree_map
 from repro_torch.serve import ServeConfig, ServeLoop, greedy_generate
 from repro_torch.serve.engine import make_prefill_step
 
@@ -333,14 +341,26 @@ def test_unported_layer_kinds_raise(model):
 
 
 @pytest.mark.parametrize("entry", ["loss_fn", "launch.train"])
-def test_trainer_refuses_rwkv6(model, entry):
-    """Training rwkv6 is not ported (no gradient of the WKV forms is held
-    against the reference's): the loss and the train launcher refuse it."""
-    with pytest.raises(NotImplementedError, match="training ssm layers"):
-        if entry == "loss_fn":
-            toks = torch.from_numpy(model["prompts"]).long()
-            loss_fn(model["params"], model["cfg"], {"tokens": toks, "labels": toks},
-                    compute_dtype=torch.float32)
-        else:
-            train.main(["--arch", "rwkv6-1.6b", "--smoke", "--steps", "1", "--batch", "2",
-                        "--seq", "16", "--device", "cpu"])
+def test_trainer_refuses_rwkv6(model, entry, capsys):
+    """The loss and the train launcher train rwkv6-smoke and match the
+    reference (the name is from when they refused it)."""
+    if entry == "loss_fn":
+        toks = model["prompts"].repeat(2, axis=1)
+        labels = np.roll(toks, -1, 1)
+        labels[0, -3:] = -1
+        want_l, want_g = jax.jit(jax.value_and_grad(lambda p: j_loss_fn(
+            p, model["jcfg"], {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)},
+            compute_dtype=jnp.float32, loss_chunk=12)))(model["jparams"])
+        p = tree_map(lambda t: t.clone().requires_grad_(True), model["params"])
+        loss = loss_fn(p, model["cfg"], {"tokens": torch.from_numpy(toks),
+                                          "labels": torch.from_numpy(labels)},
+                       compute_dtype=torch.float32, loss_chunk=12)
+        got_g = torch.autograd.grad(loss, tree_leaves(p))
+        assert abs(float(loss) - float(want_l)) <= 1e-5 * abs(float(want_l))
+        assert max(rel_max(b, a) for a, b in zip(jax.tree.leaves(want_g), got_g)) <= 1e-4
+    else:
+        args = ["--arch", "rwkv6-1.6b", "--smoke", "--steps", "2", "--batch", "2", "--seq", "16"]
+        want = j_train.main(args)
+        got = train.main(args + ["--device", "cpu"])
+        assert len(got) == 2 and all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(got, want))
+        assert "final loss:" in capsys.readouterr().out
