@@ -41,7 +41,8 @@ Phases (any failure exits non-zero; nothing is caught):
    the compiled loop's SASS count beside it (``tools/k6_sass.py``);
 4. draw qwen2-smoke's initial weights on the card (bit-equal to the
    CPU draw, which is the reference's) and qwen2-0.5b's at full width
-   (timed); serve qwen2-0.5b at full width (24 layers, random weights
+   (timed); serve qwen2-0.5b at full width (4 of its 24 layers,
+   ``SERVE_LAYERS``, random weights
    from a seed) through ``ServeLoop`` with the ``mem_faithful`` policy
    (``dynamic_row`` ADC), programmed on the card (K6 must have launched
    once per slice plane of every weight): every request must
@@ -70,13 +71,14 @@ Phases (any failure exits non-zero; nothing is caught):
    before a swap bit-equal to the run without refresh, the plain
    versions bit-equal, drift off equal to the greedy run); then the
    serve launcher, ``repro_torch.launch.serve.main``, at qwen2-0.5b's
-   full width (``launch``): the default mode (``make_policy
+   full width, ``SERVE_LAYERS`` layers (``launch``): the default mode (``make_policy
    ("mem_faithful")``, batch 4, prompt 16, 16 new tokens) through the
    dense ``greedy_generate`` (K1 and K6 launched, by the formula; its
    tok/s and ITL), the same at 1 layer with ``--kernels on`` and
    ``off`` (4 new tokens) and at 2 layers with ``--per_call`` (tokens and
-   every logit row bit-equal), ``--requests 8 --slots 4 --gen 8`` through the
-   ``ServeLoop`` (K1, K2, K3 launched, every request finished), and one
+   every logit row bit-equal), and at ``SERVE_LAYERS`` layers
+   ``--requests 8 --slots 4 --gen 8`` through the
+   ``ServeLoop`` (K1, K2, K3 launched, every request finished) and one
    1,536-token prompt under ``digital`` through the dense path
    (``attention_chunked``) and the ``ServeLoop`` (equal tokens,
    first-token logits within max rel 1e-4); and K1 on one call of 1,536
@@ -84,9 +86,9 @@ Phases (any failure exits non-zero; nothing is caught):
    (``check_k1_long``); then rwkv6-1.6b (the attention-free RWKV6
    ``ssm`` family, ``rwkv6``): at rwkv6-smoke the card's initial weights
    and launcher tokens (digital, ``mem_faithful``) equal to the CPU's;
-   at full width and depth the launcher's default mode ``--arch
-   rwkv6-1.6b --policy mem_faithful`` through the dense
-   ``greedy_generate`` (K1 193 x 17 and K6 772 launches, no K2 / K3; its
+   at full width, 4 of its 24 layers (``RWKV_LAYERS``), the launcher's
+   default mode ``--arch rwkv6-1.6b --policy mem_faithful`` through the
+   dense ``greedy_generate`` (K1 33 x 17 and K6 132 launches, no K2 / K3; its
    programming, prefill, ITL, idle share and K1 a step), one 4,096-token
    prompt under ``mem_faithful`` at 2 of the 24 layers (prefill, ITL,
    peak memory, K1 17 x 5),
@@ -138,7 +140,8 @@ Phases (any failure exits non-zero; nothing is caught):
    tokens and logits bit-equal; ``--only encdec`` runs this phase alone
    after the build;
 5. the trainer (``train``): ``repro_torch.launch.train.main`` at
-   qwen2-0.5b's full width and depth under ``make_policy
+   qwen2-0.5b's full width, 4 of its 24 layers (``TRAIN_LAYERS``), under
+   ``make_policy
    ("mem_faithful")``, batch 8 x 128 tokens, loss chunks of 64, remat
    on, float32, AdamW with the cosine schedule, 3 steps: every loss and
    grad norm finite, K1 and K6 launched by the formula (per step one
@@ -148,9 +151,10 @@ Phases (any failure exits non-zero; nothing is caught):
    step), and, at 2 of the 24 layers (full width, batch 8 x 128, remat
    on), a resumed run (2 steps with ``--ckpt``, then to step 3)
    bit-equal to an uninterrupted one; K1 at the trainer's calls, each
-   projection shape at 1,024 rows and the vocab head at 512 rows (its
-   plain version over three slabs of 2,048 columns), bit-equal to its
-   plain version (``check_k1_train``, :func:`check_k1_calls`);
+   projection shape at 1,024 rows and the vocab head at 512 rows (the
+   plain version over each weight's last 256-column slab, the kernel's
+   call whole), bit-equal to its plain version (``check_k1_train``,
+   :func:`check_k1_calls`);
    at 1 of the 24 layers (batch 2 x 16, 2 steps) the kernels against
    their plain versions and remat on against off, every loss, grad
    norm, parameter and moment bit for bit (``train_plain``); one
@@ -161,7 +165,7 @@ Phases (any failure exits non-zero; nothing is caught):
    fall (``hw_training``).  ``python3 chip_smoke.py --only train``, an
    aid while developing the trainer (the smoke test proper takes no
    arguments), builds the kernels and runs these phases alone; then the
-   same launcher trains rwkv6-1.6b at full width and depth
+   same launcher trains rwkv6-1.6b at full width, 4 of its 24 layers
    (``rwkv6_train``: ``mem_faithful``, batch 4 x 128, the chunked WKV
    form, 3 steps, each loss and grad norm finite, K1 and K6 by the
    formula, step time, tokens/s, peak memory, one step profiled for the
@@ -180,7 +184,24 @@ Phases (any failure exits non-zero; nothing is caught):
    256 rows and the head's at 128 bit-equal to its plain version;
    qwen3-moe-smoke's kernels against their plain versions and remat on
    against off, bit for bit); ``--only rwkv6_train`` and ``--only
-   moe_train`` run each alone after the build;
+   moe_train`` run each alone after the build; then jamba-v0.1-52b's
+   full-width period (one period of 8 layers, the dense MLP in each)
+   through the train launcher's loop (``jamba_train``: the memory reckoning,
+   batch 2 x 128, 3 steps, AdamW in place, the same prints, K1 at every
+   distinct (K, N, M) of the step bit-equal to its plain version over
+   its last 256-column slab, ``TRAIN_SLAB``, with the call's launch plan
+   printed; jamba-smoke, its MoE layers included, through the launcher,
+   the kernels against their plain versions and remat on against off),
+   whisper-tiny at full width and depth (4 x 128 decoder tokens over
+   1,500 frames a row, 3 steps) and phi-3-vision-4.2b at full width cut
+   to 4 of its 32 layers (2 x (576 patches + 64 tokens), 2 steps)
+   through the launcher (``encdec_train``: likewise, K1 at the calls
+   ``encdec`` does not hold), and qwen3-4b and qwen1.5-32b served at full
+   width, 1 layer, through the serve launcher's default mode and the
+   same generation profiled (``dense_configs``: K1 and K6 by the
+   formula, tok/s, K1 a decode step against its bound); ``--only
+   jamba_train``, ``--only encdec_train`` and ``--only dense_configs``
+   run each alone after the build;
 6. run the seven paper applications (``repro_torch.apps``) at their
    reference defaults (the default ``DPEConfig`` backend ``xla``: the
    ``dynamic`` ADC range spans a whole call, K-means' 150 rows
@@ -694,13 +715,15 @@ def serve(qcfg, card, counters):
     launches = served_launches()
     check_finished(rep, "serve")
     expect = {
-        "fused_sliced_matmul": 168 * rep.prefill_chunks_run + len(reqs) + 169 * rep.decode_steps,
+        "fused_sliced_matmul": 7 * qcfg.n_layers * rep.prefill_chunks_run + len(reqs)
+        + (7 * qcfg.n_layers + 1) * rep.decode_steps,
         "paged_decode_attention": qcfg.n_layers * rep.decode_steps,
         "paged_chunk_attention": qcfg.n_layers * rep.prefill_chunks_run,
     }
     check_launches("serve", launches, expect, rep)
     counters.update(launches)
-    print(f"serve qwen2-0.5b mem_faithful dynamic_row, 24 layers, 2 slots, 4 requests "
+    print(f"serve qwen2-0.5b mem_faithful dynamic_row, {qcfg.n_layers} of 24 layers, 2 slots, "
+          f"4 requests "
           f"x 8 tokens: {rate_line(rep)}  [{card}]")
     print("tokens:", [r.tokens for r in rep.results])
 
@@ -770,6 +793,10 @@ LONG_LAYERS = 2
 # the depth of the checks that run the kernels alone (``--per_call`` against the
 # programmed run, the trainer's checkpoint resume): a second layer has keys of its own
 CHECK_LAYERS = 2
+# the depth of qwen2-0.5b's ServeLoop phases (serve, serve_sampled, serve_spec,
+# serve_drift) and of the launcher's runs at full width: a depth cut for the script's
+# time limit (the ServeLoop phases took ~141 s at 24 layers on an H100 80GB HBM3, 700 W)
+SERVE_LAYERS = 4
 
 
 def cut_depth(cfg, params, programmed=None, n=CUT_LAYERS):
@@ -929,7 +956,8 @@ def serve_sampled(params, qcfg, sc, loop, reqs, rep, card):
     launches = served_launches()
     check_finished(srep, "serve_sampled")
     check_launches("serve_sampled", launches, {
-        "fused_sliced_matmul": 168 * srep.prefill_chunks_run + len(sreqs) + 169 * srep.decode_steps,
+        "fused_sliced_matmul": 7 * qcfg.n_layers * srep.prefill_chunks_run + len(sreqs)
+        + (7 * qcfg.n_layers + 1) * srep.decode_steps,
         "paged_decode_attention": qcfg.n_layers * srep.decode_steps,
         "paged_chunk_attention": qcfg.n_layers * srep.prefill_chunks_run,
     }, srep)
@@ -973,10 +1001,11 @@ def serve_spec(params, qcfg, sc, loop, reqs, rep, sreqs, srep, card):
             # the draft prefills every prompt whole (no prefix cache)
             n_chunks = sum(-(-len(r.tokens) // sc.prefill_chunk) for r in rq)
             rounds = got.decode_steps
+            chunk, step = 7 * qcfg.n_layers, 7 * qcfg.n_layers + 1  # K1 calls
             expect = {
-                "fused_sliced_matmul": 168 * got.prefill_chunks_run + len(rq)
-                + (168 * n_chunks if faithful_draft else 0)
-                + rounds * (169 + (SPEC_K + 1) * 169 * faithful_draft),
+                "fused_sliced_matmul": chunk * got.prefill_chunks_run + len(rq)
+                + (chunk * n_chunks if faithful_draft else 0)
+                + rounds * (step + (SPEC_K + 1) * step * faithful_draft),
                 "paged_decode_attention": qcfg.n_layers * rounds * (SPEC_K + 2),
                 "paged_chunk_attention": qcfg.n_layers * (got.prefill_chunks_run + n_chunks),
             }
@@ -1113,7 +1142,8 @@ def dense_rate(params, qcfg, card):
         times[n].append(time.monotonic() - t0)
     pre, whole = times[0][1], times[16][1]
     itl = (whole - pre) / 16
-    print(f"dense greedy_generate, qwen2-0.5b mem_faithful (dynamic ADC), batch 4: prefill of "
+    print(f"dense greedy_generate, qwen2-0.5b ({qcfg.n_layers} layers) mem_faithful (dynamic "
+          f"ADC), batch 4: prefill of "
           f"64 rows {pre * 1e3:.1f} ms, 16 new tokens in {whole * 1e3:.1f} ms: "
           f"{4 * 16 / whole:.2f} tok/s, ITL {itl * 1e3:.1f} ms (the third run: "
           f"{(times[16][2] - times[0][2]) / 16 * 1e3:.1f} ms)  [{card}]")
@@ -1121,27 +1151,33 @@ def dense_rate(params, qcfg, card):
                device_groups(lambda: generate(16)), whole * 1e3, card)
 
 
-def launch(params, qcfg, card, counters):
-    """``repro_torch.launch.serve.main`` at qwen2-0.5b's full width: the
-    default mode (``greedy_generate``, K1 and K6 launched); the same at
+def launch(qcfg, card, counters):
+    """``repro_torch.launch.serve.main`` at qwen2-0.5b's full width,
+    ``SERVE_LAYERS`` layers: the default mode (``greedy_generate``, K1 and
+    K6 launched; then timed and profiled, :func:`dense_rate`); the same at
     ``CUT_LAYERS`` layers with ``--kernels on`` and ``off`` (tokens and
     every logit row bit-equal) and at ``CHECK_LAYERS`` with ``--per_call``
-    (bit-equal to the programmed run); ``--requests 8 --slots 4 --gen 8`` (K1, K2, K3
-    launched, every request finished); one 1,536-token prompt under
-    ``digital``, dense (``attention_chunked``) against the ``ServeLoop``
-    (K2 / K3): equal tokens, first-token logits within max rel 1e-4."""
+    (bit-equal to the programmed run); ``--requests 8 --slots 4 --gen 8``
+    (K1, K2, K3 launched, every request finished) and one 1,536-token
+    prompt under ``digital``, dense (``attention_chunked``) against the
+    ``ServeLoop`` (K2 / K3): equal tokens, first-token logits within max
+    rel 1e-4."""
     from repro_torch.core.prng import PRNGKey, randint
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as launcher
+    from repro_torch.models import init_params
     from repro_torch.serve import Request, ServeConfig, ServeLoop
 
+    qcfg = qcfg.replace(n_layers=SERVE_LAYERS)
     ops.reset_counters()
-    tokens = launcher.main(LAUNCH)
+    tokens = launcher.main(LAUNCH + ["--layers", str(SERVE_LAYERS)])
     torch.cuda.synchronize()
     launched = path_launches()
-    expect_k1 = 169 * 17  # the prefill and 16 decode steps: 7 projections x 24 layers + the head
+    # the prefill and 16 decode steps: 7 projections a layer and the head
+    expect_k1 = (7 * qcfg.n_layers + 1) * 17
     expect_k6 = K6_PER_PROGRAMMING(qcfg, faithful_policy())
-    print(f"launch default mode: launches {launched}; expected K1 {expect_k1}, K6 {expect_k6}")
+    print(f"launch default mode at {qcfg.n_layers} layers: launches {launched}; expected K1 "
+          f"{expect_k1}, K6 {expect_k6}")
     if (launched["fused_sliced_matmul"] != expect_k1 or launched["program_noise"] != expect_k6
             or launched["paged_decode_attention"] or launched["paged_chunk_attention"]):
         raise AssertionError(f"launch default mode: launches {launched}")
@@ -1149,6 +1185,7 @@ def launch(params, qcfg, card, counters):
         raise AssertionError(f"launch default mode: tokens {tokens}")
     for name, n in launched.items():
         counters[name] = counters.get(name, 0) + n
+    params = init_params(qcfg, 0, device="cuda")  # the launcher's weights
     dense_rate(params, qcfg, card)
 
     cut = LAUNCH + ["--layers", str(CUT_LAYERS), "--gen", str(CUT_GEN)]
@@ -1177,10 +1214,11 @@ def launch(params, qcfg, card, counters):
 
     ops.reset_counters()
     rep = launcher.main(["--policy", "mem_faithful", "--requests", "8", "--slots", "4",
-                         "--gen", "8"])
+                         "--gen", "8", "--layers", str(SERVE_LAYERS)])
     torch.cuda.synchronize()
     launched = path_launches()
-    print(f"launch --requests 8 --slots 4: launches {launched}; {rate_line(rep)}  [{card}]")
+    print(f"launch --requests 8 --slots 4 at {SERVE_LAYERS} layers: launches {launched}; "
+          f"{rate_line(rep)}  [{card}]")
     _need_launched("launch --requests", launched,
                    ("fused_sliced_matmul", "paged_decode_attention", "paged_chunk_attention"))
     for r in rep.results:
@@ -1194,7 +1232,7 @@ def launch(params, qcfg, card, counters):
     t0 = time.monotonic()
     dense_tok, dense_logits = launcher.main(
         ["--policy", "digital", "--batch", "1", "--prompt_len", str(LONG_PROMPT),
-         "--gen", str(n_new)], collect_logits=True)
+         "--gen", str(n_new), "--layers", str(SERVE_LAYERS)], collect_logits=True)
     torch.cuda.synchronize()
     t_dense = time.monotonic() - t0
     prompt = randint(PRNGKey(1), (1, LONG_PROMPT), 0, qcfg.vocab).numpy()[0]
@@ -1209,7 +1247,8 @@ def launch(params, qcfg, card, counters):
     k2, k3 = ops.COUNTERS["paged_decode_attention"].count, ops.COUNTERS["paged_chunk_attention"].count
     first = torch.from_numpy(res.logits[0]).cuda()
     rel = rel_max(dense_logits[0, 0], first)
-    print(f"long prompt ({LONG_PROMPT} tokens, {n_new} new, digital): dense greedy_generate "
+    print(f"long prompt at {SERVE_LAYERS} layers ({LONG_PROMPT} tokens, {n_new} new, digital): "
+          f"dense greedy_generate "
           f"{t_dense:.2f} s, ServeLoop {t_paged:.2f} s ({k2} K2, {k3} K3 launches); tokens "
           f"{dense_tok[0].tolist()} vs {res.tokens}; first-token logits max rel {rel:.3e}  "
           f"[{card}]")
@@ -1259,7 +1298,10 @@ def check_k1_long(timer, card):
 
 RWKV_LAUNCH = ["--arch", "rwkv6-1.6b", "--policy", "mem_faithful", "--batch", "4",
                "--prompt_len", "16", "--gen", "16"]
-RWKV_K1_STEP = 8 * 24 + 1  # r, k, v, g, o and the MLP's wi, wg, wo in 24 layers + the head
+# the served run's depth (of 24, full width): a depth cut for the script's time limit
+# (the phase took ~55 s at 24 layers on an H100 80GB HBM3, 700 W)
+RWKV_LAYERS = 4
+RWKV_K1_STEP = 8 * RWKV_LAYERS + 1  # r, k, v, g, o and the MLP's wi, wg, wo a layer + the head
 RWKV_PROMPT = 100  # a digital prefill through the chunked WKV form: 4 chunks, the last padded
 # the depth of that prompt's check against token-by-token decoding, whose 104 decode
 # steps take ~0.27 s each at the full 24 layers
@@ -1270,8 +1312,9 @@ RWKV_PROFILED = 4  # decode steps of the profiled generation (the idle share, K1
 
 
 def rwkv6(card, counters):
-    """rwkv6-1.6b at its published widths and depth through
-    ``repro_torch.launch.serve`` and the dense ``greedy_generate``: the
+    """rwkv6-1.6b at its published widths, ``RWKV_LAYERS`` of its 24
+    layers, through ``repro_torch.launch.serve`` and the dense
+    ``greedy_generate``: the
     launcher's default mode (``make_policy("mem_faithful")``, batch 4,
     prompt 16, 16 new; K1 and K6 by the formula, no K2 / K3) with its
     programming, prefill, ITL and idle share; the same at ``CUT_LAYERS``
@@ -1310,9 +1353,10 @@ def rwkv6(card, counters):
     print(f"rwkv6-smoke on the card: initial weights bit-equal to the CPU's; digital and "
           f"mem_faithful launcher tokens equal to the CPU's  [{card}]")
 
-    # the launcher's default mode at full width and depth
+    # the launcher's default mode at full width, RWKV_LAYERS layers
+    cfg = cfg.replace(n_layers=RWKV_LAYERS)
     ops.reset_counters()
-    tokens = launcher.main(RWKV_LAUNCH)
+    tokens = launcher.main(RWKV_LAUNCH + ["--layers", str(RWKV_LAYERS)])
     torch.cuda.synchronize()
     launched = path_launches()
     expect_k1 = RWKV_K1_STEP * 17  # the prefill and 16 decode steps
@@ -2189,14 +2233,38 @@ def check_k1_sites(timer, arch, params, prog, calls, dcfg, card):
                   f"{t_plain:.1f} ms  [{card}]")
 
 
+def k1_event_ms(fn) -> list:
+    """``fn()`` with each K1 call timed by CUDA events: its calls' device
+    ms (no profiler, which can lose events)."""
+    from repro_torch.kernels import sliced_matmul as sm
+
+    inner, spans = sm.fused_sliced_matmul_cuda, []
+
+    def call(*a, **kw):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = inner(*a, **kw)
+        e.record()
+        spans.append((s, e))
+        return out
+
+    sm.fused_sliced_matmul_cuda = call
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        sm.fused_sliced_matmul_cuda = inner
+    return [s.elapsed_time(e) for s, e in spans]
+
+
 def _generation(label, generate, calls_pre, calls_step, n_new, card):
     """Time ``generate(n)`` (``greedy_generate`` of n new tokens, after a
     warm-up): TTFT from ``n = 0``, the whole run, tok/s and ITL from ``n =
-    n_new``; then both profiled: the idle share against the timed run's
-    wall, K1's device ms in the prefill (``n = 0``) and a decode step (the
-    difference over ``n_new``) against their bounds, and the launches of
-    each.  ``calls_pre`` / ``calls_step``: (K, N, M) of every K1 call of
-    the prefill / a step."""
+    n_new``; the idle share of the profiled ``n = n_new`` run against the
+    timed run's wall; K1's device ms in the prefill (``n = 0``) and a
+    decode step (the difference over ``n_new``) by CUDA events
+    (:func:`k1_event_ms`) against their bounds.  ``calls_pre`` /
+    ``calls_step``: (K, N, M) of every K1 call of the prefill / a step."""
     wall = {}
     for n in (0, n_new):
         t0 = time.monotonic()
@@ -2211,24 +2279,20 @@ def _generation(label, generate, calls_pre, calls_step, n_new, card):
           f"{pre * 1e3:.1f} ms, {n_new} new tokens in {whole * 1e3:.1f} ms: "
           f"{batch * n_new / whole:.2f} tok/s, ITL {(whole - pre) / n_new * 1e3:.1f} ms; peak "
           f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
-    g_pre = device_groups(lambda: generate(0))
     g_all = device_groups(lambda: generate(n_new))
     print_busy(f"{label}'s generation (the prefill and {n_new} decode steps)", g_all,
                whole * 1e3, card, k1_calls=len(calls_pre) + n_new * len(calls_step))
-    if not (g_pre and g_all):
-        print(f"  K1 in the prefill and a decode step: not measured; bounds {b_pre:.3f} / "
-              f"{b_step:.3f} ms")
-        return
-    k1_pre, n_k1_pre = g_pre.get("K1", (0.0, 0))
-    n_pre = sum(n for _, n in g_pre.values())
-    k1_step = (g_all.get("K1", (0.0, 0))[0] - k1_pre) / n_new
-    n_step = (sum(n for _, n in g_all.values()) - n_pre) / n_new
-    print(f"  the prefill: K1 {k1_pre:.3f} ms device in {n_k1_pre} launches against its bound "
-          f"{b_pre:.3f} ms ({by_pre}), {b_pre / max(k1_pre, 1e-9):.1%} of it; {n_pre} launches "
-          f"in all; a decode step: "
-          f"K1 {k1_step:.3f} ms device against its bound {b_step:.3f} ms ({gb:.2f} GB of "
-          f"slices, {by_step}), {b_step / max(k1_step, 1e-9):.1%} of it; {n_step:.0f} launches "
-          f"[{card}]")
+    ev_pre = k1_event_ms(lambda: generate(0))
+    ev_all = k1_event_ms(lambda: generate(n_new))
+    if len(ev_pre) != len(calls_pre) or len(ev_all) != len(calls_pre) + n_new * len(calls_step):
+        raise AssertionError(f"{label}: {len(ev_pre)} and {len(ev_all)} K1 calls, expected "
+                             f"{len(calls_pre)} and {len(calls_pre) + n_new * len(calls_step)}")
+    k1_pre = sum(ev_pre)
+    k1_step = (sum(ev_all) - k1_pre) / n_new
+    print(f"  K1 by CUDA events: the prefill {k1_pre:.3f} ms in {len(ev_pre)} calls against its "
+          f"bound {b_pre:.3f} ms ({by_pre}), {b_pre / max(k1_pre, 1e-9):.1%} of it; a decode "
+          f"step {k1_step:.3f} ms in {len(calls_step)} calls against its bound {b_step:.3f} ms "
+          f"({gb:.2f} GB of slices, {by_step}), {b_step / max(k1_step, 1e-9):.1%} of it  [{card}]")
 
 
 def encdec(timer, card, counters):
@@ -2812,7 +2876,11 @@ def check_k6(timer, qcfg, summary, card):
 
 # the launcher at qwen2-0.5b's full width, make_policy("mem_faithful"),
 # 3 steps of batch 8 x 128 tokens (loss chunks of 64, remat on, float32)
-TRAIN = ["--policy", "mem_faithful", "--steps", "3", "--batch", "8", "--seq", "128"]
+# (the depth: 4 of 24 layers, a cut for the script's time limit; the phase took ~57 s
+# at 24 layers on an H100 80GB HBM3, 700 W)
+TRAIN_LAYERS = 4
+TRAIN = ["--policy", "mem_faithful", "--steps", "3", "--batch", "8", "--seq", "128",
+         "--layers", str(TRAIN_LAYERS)]
 # the kernels-against-plain comparison: 1 of the 24 layers, batch 2 x 16
 TRAIN_CUT = ["--policy", "mem_faithful", "--layers", str(CUT_LAYERS), "--batch", "2", "--seq",
              "16", "--steps", "2"]
@@ -2857,8 +2925,9 @@ def _train_counts():
 
 
 def train(qcfg, card, counters):
-    """``repro_torch.launch.train.main`` at qwen2-0.5b's full width and
-    depth under ``mem_faithful``: 3 steps (each loss and grad norm finite,
+    """``repro_torch.launch.train.main`` at qwen2-0.5b's full width,
+    ``TRAIN_LAYERS`` of its 24 layers, under ``mem_faithful``: 3 steps
+    (each loss and grad norm finite,
     K1 and K6 launched by the formula), one more step profiled (idle
     share, K1 a step against its bound, K6); then, at ``CHECK_LAYERS``
     layers (full width, the same batch, loss chunks and remat), a resumed
@@ -2868,9 +2937,11 @@ def train(qcfg, card, counters):
 
     from repro_torch.launch import train as trainer
 
-    want = train_launches(qcfg.n_layers, 3, 128)
-    rep, state = train_run("qwen2-0.5b mem_faithful (8 x 128)", TRAIN, want, card, counters)
-    train_profile("qwen2-0.5b (1,024 tokens)", qcfg, TRAIN, rep, state, want, card)
+    want = train_launches(TRAIN_LAYERS, 3, 128)
+    rep, state = train_run(f"qwen2-0.5b, {TRAIN_LAYERS} layers, mem_faithful (8 x 128)", TRAIN,
+                           want, card, counters)
+    train_profile(f"qwen2-0.5b, {TRAIN_LAYERS} layers (1,024 tokens)",
+                  qcfg.replace(n_layers=TRAIN_LAYERS), TRAIN, rep, state, want, card)
 
     del state
     torch.cuda.empty_cache()
@@ -2958,34 +3029,50 @@ def _train_proj(cfg) -> list:
     return mix + ([] if moe else [(d, cfg.d_ff), (d, cfg.d_ff), (cfg.d_ff, d)])
 
 
-def train_k1_cases(phase) -> list:
-    """The distinct (K, N, M) of K1's calls in one train step of
-    ``phase`` (:data:`TRAIN_K1`), in call order."""
+def train_cfg(phase):
+    """The configuration ``phase``'s trainer runs (:data:`TRAIN_K1`)."""
     from repro_torch.configs import get
 
-    arch, args = TRAIN_K1[phase]
+    arch, args = TRAIN_K1[phase][:2]
     cfg = get(arch)
-    if "--layers" in args:
-        cfg = cfg.replace(n_layers=_arg(args, "--layers"))
-    return list(dict.fromkeys(_step_calls(cfg, args, _train_proj(cfg))))
+    if arch == JAMBA_ARCH:
+        return jamba_full(cfg)
+    return cfg.replace(n_layers=_arg(args, "--layers")) if "--layers" in args else cfg
 
 
-def _k1_pieces(n: int):
-    """Column pieces of an N-wide weight, each programmed with a key of its
-    own, and the pieces held against the plain version: one piece, held
-    whole, up to 8 ``HEAD_SLAB`` columns (every projection); a vocab head
-    in slabs of ``HEAD_SLAB`` whole crossbar columns, of which the first,
-    the middle and the last are held (a slab's plain version gives its
-    columns of the whole in the same bits: ``dynamic`` ranges and block
-    scales span one crossbar's columns)."""
+def train_k1_cases(phase) -> list:
+    """The distinct (K, N, M) of K1's calls in one train step of
+    ``phase`` (:data:`TRAIN_K1`), in call order, but those at rows an
+    earlier phase holds."""
+    _, args, held, _ = TRAIN_K1[phase]
+    return [c for c in dict.fromkeys(_step_calls(train_cfg(phase), args))
+            if c[2] not in held]
+
+
+def _k1_pieces(n: int, phase: str):
+    """Column pieces of an N-wide weight of ``phase``'s step, each
+    programmed with a key of its own, and the pieces held against the
+    plain version.  A phase with a slab width in :data:`TRAIN_K1` holds
+    the last of its slab-wide pieces (whole crossbar columns, ragged where
+    the slab does not divide N); the others hold one piece, whole, up to 8
+    ``HEAD_SLAB`` columns (every projection), and a vocab head in slabs of
+    ``HEAD_SLAB`` whole crossbar columns, of which the first, the middle
+    and the last are held (a slab's plain version gives its columns of
+    the whole in the same bits: ``dynamic`` ranges and block scales span
+    one crossbar's columns)."""
+    slab = TRAIN_K1[phase][3]
+    if slab:
+        pieces = [(c, min(c + slab, n)) for c in range(0, n, slab)]
+        return pieces, [len(pieces) - 1]
     if n <= 8 * HEAD_SLAB:
         return [(0, n)], [0]
     pieces = [(c, min(c + HEAD_SLAB, n)) for c in range(0, n, HEAD_SLAB)]
     return pieces, [0, len(pieces) // 2, len(pieces) - 1]
 
 
-def _k1_operands(seed: int, k: int, n: int, m: int, pieces, kernels: bool):
-    """x (m, k) and the programmed pieces ``pieces`` of a (k, n) weight
+def _k1_operands(seed: int, k: int, m: int, cols, pieces, kernels: bool):
+    """x (m, k) and the programmed pieces ``pieces`` (indices into the
+    column pieces ``cols``, :func:`_k1_pieces`) of a weight with k rows
     under ``mem_faithful``, all drawn on the card from ``seed`` (piece j
     from its own generator and ``fold_in(PRNGKey(seed), j)``), programmed
     by K6 or (``kernels=False``) its plain version, which agree bit for
@@ -2997,7 +3084,6 @@ def _k1_operands(seed: int, k: int, n: int, m: int, pieces, kernels: bool):
     cfg = make_policy("mem_faithful").default
     x = torch.randn((m, k), generator=torch.Generator(device="cuda").manual_seed(seed),
                     device="cuda")
-    cols = _k1_pieces(n)[0]
     out = []
     for j in pieces:
         c0, c1 = cols[j]
@@ -3018,8 +3104,8 @@ def k1_train_plain(phase) -> list:
     res = []
     for i, (k, n, m) in enumerate(train_k1_cases(phase)):
         t0 = time.monotonic()
-        held = _k1_pieces(n)[1]
-        x, pws = _k1_operands(K1_SEED + i, k, n, m, held, kernels=False)
+        cols, held = _k1_pieces(n, phase)
+        x, pws = _k1_operands(K1_SEED + i, k, m, cols, held, kernels=False)
         ys = [sm.fused_sliced_matmul_ref(x, pw.slices, pw.scale, **kw).cpu() for pw in pws]
         res.append((ys, (time.monotonic() - t0) * 1e3))
         del x, pws
@@ -3043,7 +3129,9 @@ def check_k1_calls(timer, phase, label, card, plain=None):
     to its plain version (``plain``: :func:`k1_train_plain`'s, computed
     here if not given), then timed beside its bound.  The kernel runs on
     the whole weight, its pieces (:func:`_k1_pieces`) programmed by K6;
-    the plain version on the held pieces."""
+    the plain version on the held pieces.  The kernel's call has the
+    step's padded width, so its launch plan (printed) is the step's call's,
+    and it runs as one group of rows, as the step's."""
     from repro_torch.kernels import sliced_matmul as sm
     from repro_torch.launch.dryrun import make_policy
 
@@ -3053,12 +3141,22 @@ def check_k1_calls(timer, phase, label, card, plain=None):
     ahead = plain is not None
     plain = plain if ahead else k1_train_plain(phase)
     for i, ((k, n, m), (yps, t_plain)) in enumerate(zip(cases, plain)):
-        pieces, held = _k1_pieces(n)
-        x, pws = _k1_operands(K1_SEED + i, k, n, m, range(len(pieces)), kernels=True)
+        pieces, held = _k1_pieces(n, phase)
+        x, pws = _k1_operands(K1_SEED + i, k, m, pieces, range(len(pieces)), kernels=True)
         ws = torch.cat([pw.slices for pw in pws], dim=-1)
         sw = torch.cat([pw.scale for pw in pws], dim=-1)
         del pws
+        kp, np_ = ws.shape[-2:]
+        plan = sm.plan_k1(m, kp, np_, 128, cfg.input_spec.n_slices, cfg.weight_spec.n_slices,
+                          "dynamic", 128, cfg.radc)
+        if np_ != -(-n // 128) * 128:
+            raise AssertionError(f"K1 {k} -> {n} ({label}): the held call is {np_} wide, the "
+                                 f"step's {-(-n // 128) * 128}")
+        before = sm.counter.count
         y = sm.fused_sliced_matmul_cuda(x, ws, sw, **kw)
+        if sm.counter.count - before != 1:
+            raise AssertionError(f"K1 {k} -> {n} at M={m} ({label}): the call ran in "
+                                 f"{sm.counter.count - before} row groups, the step's in one")
         # each piece is padded to whole crossbars: its columns of y start at its own offset
         starts = np.cumsum([0] + [-(-(c1 - c0) // 128) * 128 for c0, c1 in pieces])
         same = bool(torch.isfinite(y).all())
@@ -3079,7 +3177,10 @@ def check_k1_calls(timer, phase, label, card, plain=None):
             plain_s += (f" over {done:,} of its {np_:,} columns (slabs from "
                         f"{', '.join(str(pieces[j][0]) for j in held)})")
         print(f"K1 {k} -> {n} at M={m} ({label}) bit-equal to its plain version: kernel "
-              f"{t:.4f} ms, {plain_s}, bound {b:.4f} ms ({by}), {b / t:.1%} of it  [{card}]")
+              f"{t:.4f} ms, {plain_s}, bound {b:.4f} ms ({by}), {b / t:.1%} of it; plan: "
+              f"{plan.nk} x {plan.nn} tiles, column split {plan.sc}, {plan.units} row units "
+              f"over grid z {plan.z}, two-pass {plan.two_pass}, {plan.launches} launches, one "
+              f"row group  [{card}]")
         del x, ws, sw, y
     print(f"K1 at every distinct (K, N, M) of the {label} train step ({len(cases)}) bit-equal "
           "to its plain version")
@@ -3159,8 +3260,11 @@ def hw_training(card):
 # training rwkv6-1.6b and qwen3-moe-235b-a22b's first layer
 # ---------------------------------------------------------------------------
 
+# 4 of its 24 layers, a cut for the script's time limit (the phase took ~117 s at 24
+# layers on an H100 80GB HBM3, 700 W, ~53 s of it the 1-layer plain check)
+RWKV_TRAIN_LAYERS = 4
 RWKV_TRAIN = ["--arch", "rwkv6-1.6b", "--policy", "mem_faithful", "--steps", "3", "--batch",
-              "4", "--seq", "128"]
+              "4", "--seq", "128", "--layers", str(RWKV_TRAIN_LAYERS)]
 # the kernels against their plain versions: 1 layer, one row of 64 tokens (the chunked
 # WKV form), 2 steps (the second programs the updated weights): the plain K1 takes ~26 s
 # a step, the vocab head most, twice that at 2 x 64; K1's two-pass calls of whole
@@ -3172,17 +3276,15 @@ MOE_TRAIN = ["--arch", MOE_ARCH, "--layers", "1", "--policy", "mem_faithful", "-
 MOE_TRAIN_SMOKE = ["--arch", MOE_ARCH, "--smoke", "--policy", "mem_faithful", "--steps", "2",
                    "--batch", "2", "--seq", "16"]
 MOE_STACK_CHECK = 4  # experts of a stack whose K1 the plain version checks
-# the train phases whose K1 calls are held against the plain version: (arch, trainer args)
-TRAIN_K1 = {"train": ("qwen2-0.5b", TRAIN), "rwkv6_train": ("rwkv6-1.6b", RWKV_TRAIN),
-            "moe_train": (MOE_ARCH, MOE_TRAIN)}
 
 
 def _arg(args, flag) -> int:
     return int(args[args.index(flag) + 1])
 
 
-def train_run(label, args, expect, card, counters) -> tuple:
-    """``repro_torch.launch.train.main(args)`` on the card: each step's
+def train_run(label, args, expect, card, counters, cfg=None) -> tuple:
+    """``repro_torch.launch.train.main(args)`` on the card (with ``cfg``,
+    the launcher's loop, ``run``, on that configuration): each step's
     loss, grad norm, time and tokens/s printed, every loss and grad norm
     finite, the launches ``expect`` (K1, K6, stacked K1) and the peak
     device memory.  Returns (report, final state)."""
@@ -3192,7 +3294,8 @@ def train_run(label, args, expect, card, counters) -> tuple:
     before = _train_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    _, state = trainer.main(args, return_state=True, report=rep)
+    flags = trainer.parse_args(args)
+    _, state = trainer.run(cfg or trainer.config_of(flags), flags, return_state=True, report=rep)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     n = tuple(a - b for a, b in zip(_train_counts(), before))
@@ -3236,7 +3339,7 @@ def train_profile(label, cfg, args, rep, state, expect, card):
     batch = synthetic_batch(cfg, _arg(args, "--batch"), _arg(args, "--seq"), steps,
                             device="cuda")
     step_ms = statistics.mean(rep["step_s"][1:]) * 1e3
-    calls = _step_calls(cfg, args, _train_proj(cfg))
+    calls = _step_calls(cfg, args)
     moe = cfg.layer_kind(0)[1]
     want = tuple(c // steps for c in expect)
     out: dict = {}
@@ -3274,21 +3377,28 @@ def train_profile(label, cfg, args, rep, state, expect, card):
         print(f"    {ms:.2f} ms in {n} launches  {g[7:]}")
 
 
-def _step_calls(cfg, args, proj) -> list:
-    """(K, N, M) of K1's calls in one remat train step of ``args``: the
-    ``proj`` projections (K, N) of each layer on the batch's rows and the
-    vocab head on each loss chunk's, each twice (the forward and the
-    recompute)."""
+def _step_calls(cfg, args) -> list:
+    """(K, N, M) of K1's calls in one remat train step of ``args``: every
+    projection on the batch's rows (an encoder's on its frames', a hybrid
+    period's in its layers' order, :func:`jamba_shapes`; a vision model's
+    rows are its patches and tokens, ``--seq``), the vocab head on each
+    loss chunk's, each twice (the forward and the recompute)."""
     b, s = _arg(args, "--batch"), _arg(args, "--seq")
     ck = min(LOSS_CHUNK, s)
-    calls = [(k, n, b * s) for k, n in proj] * cfg.n_layers
+    if cfg.encoder is not None or cfg.vision_prefix:
+        calls = encdec_calls(cfg, b * s, b * cfg.encoder.n_frames if cfg.encoder else 0)
+    elif cfg.family == "hybrid":
+        calls = [(k, n, b * s) for k, n in jamba_shapes(cfg)[:-1]]
+    else:
+        calls = [(k, n, b * s) for k, n in _train_proj(cfg)] * cfg.n_layers
     calls += [(cfg.d_model, cfg.vocab, b * ck)] * -(-s // ck)
     return calls * 2
 
 
 def rwkv6_train(timer, card, counters, k1_plain=None):
-    """``repro_torch.launch.train.main`` at rwkv6-1.6b's full width and
-    depth under ``mem_faithful``: batch 4 x 128 tokens (the chunked WKV
+    """``repro_torch.launch.train.main`` at rwkv6-1.6b's full width,
+    ``RWKV_TRAIN_LAYERS`` of its 24 layers, under ``mem_faithful``: batch
+    4 x 128 tokens (the chunked WKV
     form, 4 chunks a row), loss chunks of 64, remat on, float32, AdamW, 3
     steps (each loss and grad norm finite, K1 and K6 by the formula, the
     step time, tokens/s and peak memory), one more step profiled (idle
@@ -3299,10 +3409,12 @@ def rwkv6_train(timer, card, counters, k1_plain=None):
     their plain versions and remat on against off, bit for bit."""
     from repro_torch.configs import get
 
-    cfg = get("rwkv6-1.6b")
+    cfg = get("rwkv6-1.6b").replace(n_layers=RWKV_TRAIN_LAYERS)
     want = train_launches(cfg.n_layers, 3, 128, per_layer=8)
-    rep, state = train_run("rwkv6-1.6b mem_faithful (4 x 128)", RWKV_TRAIN, want, card, counters)
-    train_profile("rwkv6-1.6b (512 tokens)", cfg, RWKV_TRAIN, rep, state, want, card)
+    rep, state = train_run(f"rwkv6-1.6b, {cfg.n_layers} layers, mem_faithful (4 x 128)",
+                           RWKV_TRAIN, want, card, counters)
+    train_profile(f"rwkv6-1.6b, {cfg.n_layers} layers (512 tokens)", cfg, RWKV_TRAIN, rep, state,
+                  want, card)
     del state
     torch.cuda.empty_cache()
     check_k1_calls(timer, "rwkv6_train", "rwkv6-1.6b", card, k1_plain)
@@ -3398,6 +3510,194 @@ def moe_train(timer, card, counters, k1_plain=None):
     train_plain(card, MOE_TRAIN_SMOKE, "qwen3-moe-smoke (2 x 16)",
                 lambda remat: train_launches(scfg.n_layers, 2, 16, remat=remat, per_layer=4,
                                              stacks=3, experts=scfg.moe.n_experts))
+
+
+# ---------------------------------------------------------------------------
+# training jamba's period, whisper-tiny and phi-3-vision's patch prefix
+# ---------------------------------------------------------------------------
+
+# jamba's full-width period (jamba_full), 2 x 128 tokens, 3 steps, through the train
+# launcher's loop (its flags have no switch for the dense MLP)
+JAMBA_TRAIN = ["--arch", JAMBA_ARCH, "--policy", "mem_faithful", "--steps", "3", "--batch", "2",
+               "--seq", "128"]
+JAMBA_TRAIN_SMOKE = ["--arch", JAMBA_ARCH, "--smoke", "--policy", "mem_faithful", "--steps", "2",
+                     "--batch", "2", "--seq", "16"]
+WHISPER_TRAIN = ["--arch", WHISPER, "--policy", "mem_faithful", "--steps", "3", "--batch", "4",
+                 "--seq", "128"]
+# --seq counts the 576 patch positions ahead of the 64 tokens
+PHI3V_TRAIN = ["--arch", PHI3V, "--layers", str(PHI3V_LAYERS), "--policy", "mem_faithful",
+               "--steps", "2", "--batch", "2", "--seq", str(576 + 64)]
+# the train phases whose K1 calls are held against the plain version: (arch, trainer args,
+# rows whose calls an earlier phase holds, slab): jamba's, whisper's and phi3's train
+# phases hold each weight over its last TRAIN_SLAB columns (ragged in a ragged head), the
+# others whole projections and three HEAD_SLAB slabs of a head (_k1_pieces); the plain K1
+# takes ~2 ns a row-weight on an H100, whole projections of jamba's period alone ~110 s
+TRAIN_SLAB = 256
+TRAIN_K1 = {"train": ("qwen2-0.5b", TRAIN, (), None),
+            "rwkv6_train": ("rwkv6-1.6b", RWKV_TRAIN, (), None),
+            "moe_train": (MOE_ARCH, MOE_TRAIN, (), None),
+            "jamba_train": (JAMBA_ARCH, JAMBA_TRAIN, (), TRAIN_SLAB),
+            # the encoder's and the cross K / V's 6,000 frame rows: encdec holds them
+            "whisper_train": (WHISPER, WHISPER_TRAIN, (4 * 1500,), TRAIN_SLAB),
+            "phi3v_train": (PHI3V, PHI3V_TRAIN, (), TRAIN_SLAB)}
+
+
+def step_launches(cfg, args, remat=True) -> tuple:
+    """(K1, K6, stacked K1) launches of ``args``' faithful train steps on
+    ``cfg``: a K1 call and one programming a projection and a loss chunk
+    (:func:`_step_calls`), three stacked K1 calls an MoE layer, twice with
+    remat; a programming is one K6 launch a slice plane of each weight,
+    each expert's."""
+    from repro_torch.launch.dryrun import make_policy
+
+    n_slices = make_policy("mem_faithful").default.weight_spec.n_slices
+    passes = (2 if remat else 1) * _arg(args, "--steps")
+    k1 = len(_step_calls(cfg, args)) // 2 * passes
+    n_moe = sum(cfg.layer_kind(i)[1] for i in range(cfg.n_layers))
+    st = 3 * n_moe * passes
+    return k1, (k1 + st * (cfg.moe.n_experts if n_moe else 0)) * n_slices, st
+
+
+def train_reckoning(label, cfg, args):
+    """The device memory a faithful AdamW step of ``cfg`` needs at least,
+    printed before its run: 16 B a parameter (float32 parameters,
+    gradients and AdamW's two moments, the update in place) and the
+    largest programmed weight of the step (16 B a weight of its padded
+    columns, one alive at a time); fails past 90 % of the card."""
+    pad = lambda n: -(-n // 128) * 128  # noqa: E731
+    n = cfg.param_count()
+    state = 16 * n / 1e9
+    big = max(16 * k * pad(nn) for k, nn, _ in _step_calls(cfg, args)) / 1e9
+    total = torch.cuda.get_device_properties(0).total_memory / 1e9
+    print(f"{label} reckoning: {n / 1e6:,.1f} M parameters; parameters, gradients and AdamW's "
+          f"moments {state:.1f} GB; the largest programmed weight {big:.1f} GB; at least "
+          f"{state + big:.1f} GB of the card's {total:.1f} GB")
+    if state + big > 0.9 * total:
+        raise AssertionError(f"{label}: AdamW's state does not fit the card")
+
+
+def jamba_train(timer, card, counters, k1_plain=None):
+    """jamba-v0.1-52b's full-width period (:func:`jamba_full`: 7 Mamba
+    layers and one attention layer, the dense MLP in each) trained under
+    ``mem_faithful`` through the train launcher's loop
+    (``repro_torch.launch.train.run``): the memory reckoning, batch 2 x
+    128, 3 steps (each loss and grad norm finite, K1 and K6 by the
+    formula, step time, tokens/s, peak memory),
+    one more step profiled (idle share, K1 and K6 a step, K1 against its
+    bound); K1 at every distinct (K, N, M) of the step bit-equal to its
+    plain version over one ``TRAIN_SLAB``-wide slab a weight
+    (:func:`check_k1_calls`); jamba-smoke, its MoE layers included,
+    through the launcher for 2 steps of 2 x 16 with the kernels against
+    their plain versions and remat on against off, bit for bit."""
+    from repro_torch.configs import get_smoke
+
+    cfg = train_cfg("jamba_train")
+    label = f"{JAMBA_ARCH}, one period (dense MLP)"
+    train_reckoning(f"jamba_train ({label})", cfg, JAMBA_TRAIN)
+    want = step_launches(cfg, JAMBA_TRAIN)
+    rep, state = train_run(f"{label}, mem_faithful (2 x 128)", JAMBA_TRAIN, want, card, counters,
+                           cfg=cfg)
+    train_profile(f"{label} (256 tokens)", cfg, JAMBA_TRAIN, rep, state, want, card)
+    del state
+    torch.cuda.empty_cache()
+    check_k1_calls(timer, "jamba_train", label, card, k1_plain)
+    torch.cuda.empty_cache()
+    scfg = get_smoke(JAMBA_ARCH)
+    train_plain(card, JAMBA_TRAIN_SMOKE, "jamba-smoke (2 x 16)",
+                lambda remat: step_launches(scfg, JAMBA_TRAIN_SMOKE, remat))
+
+
+def encdec_train(timer, card, counters, k1_plain=None):
+    """whisper-tiny at full width and depth (4 x 128 decoder tokens over
+    1,500 stubbed frames a row, 3 steps) and phi-3-vision-4.2b at full
+    width cut to ``PHI3V_LAYERS`` layers (2 x (576 patches + 64 tokens), 2
+    steps) trained through ``repro_torch.launch.train.main`` under
+    ``mem_faithful`` (AdamW, remat, loss chunks of 64): per model the
+    memory reckoning, each loss and grad norm finite, K1 and K6 by the
+    formula, step time, tokens/s, peak memory, one more step profiled,
+    and K1 at every distinct (K, N, M) of its step that ``encdec`` does
+    not hold bit-equal to its plain version (:func:`check_k1_calls`, one
+    ``TRAIN_SLAB``-wide slab a weight)."""
+    runs = (("whisper_train", WHISPER_TRAIN, f"{WHISPER} (4 x 128 over 1,500 frames)"),
+            ("phi3v_train", PHI3V_TRAIN, f"{PHI3V}, {PHI3V_LAYERS} layers (2 x (576 + 64))"))
+    for phase, args, label in runs:
+        cfg = train_cfg(phase)
+        train_reckoning(f"{phase} ({label})", cfg, args)
+        want = step_launches(cfg, args)
+        rep, state = train_run(f"{label}, mem_faithful", args, want, card, counters)
+        train_profile(label, cfg, args, rep, state, want, card)
+        del state
+        torch.cuda.empty_cache()
+        check_k1_calls(timer, phase, label, card, (k1_plain or {}).get(phase))
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the last two dense configs served: qwen3-4b and qwen1.5-32b
+# ---------------------------------------------------------------------------
+
+DENSE_CONFIGS = ("qwen3-4b", "qwen1.5-32b")
+# full width, 1 layer: qwen3-4b's 36 layers take ~64 GB of slices beside 17.6 GB of
+# parameters, qwen1.5-32b's 8.4 GB of slices a layer
+DENSE_SERVE = ["--layers", "1", "--policy", "mem_faithful", "--batch", "2", "--prompt_len", "8",
+               "--gen", "4"]
+
+
+def dense_configs(card, counters):
+    """qwen3-4b (``qk_norm``, head_dim 128) and qwen1.5-32b (40 heads,
+    ``qkv_bias``) at full width, cut to 1 layer, through
+    ``repro_torch.launch.serve``'s default mode (batch 2, prompt 8, 4
+    new; K1 and K6 by the formula, tokens in the vocab); then the same
+    generation timed and profiled (:func:`_generation`: tok/s, ITL, idle
+    share, K1 in the prefill and a decode step against its bound)."""
+    from repro_torch.configs import get
+    from repro_torch.core.prng import PRNGKey, randint
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launcher
+    from repro_torch.launch.dryrun import make_policy
+    from repro_torch.models import init_params, program_params, programmed_byte_size
+    from repro_torch.serve import greedy_generate
+
+    pol = make_policy("mem_faithful")
+    for arch in DENSE_CONFIGS:
+        cfg = get(arch).replace(n_layers=1)
+        ops.reset_counters()
+        tokens = launcher.main(["--arch", arch] + DENSE_SERVE)
+        torch.cuda.synchronize()
+        launched = path_launches()
+        want_k1, want_k6 = 8 * 5, K6_PER_PROGRAMMING(cfg, pol)  # the prefill and 4 steps
+        print(f"{arch}, 1 layer, launcher default mode: launches {launched}; expected K1 "
+              f"{want_k1}, K6 {want_k6}  [{card}]")
+        if (launched["fused_sliced_matmul"] != want_k1 or launched["program_noise"] != want_k6
+                or launched["fused_sliced_matmul_stack"] or launched["paged_decode_attention"]
+                or launched["paged_chunk_attention"]):
+            raise AssertionError(f"{arch}: launches {launched}")
+        if tokens.shape != (2, 5) or not bool(((tokens >= 0) & (tokens < cfg.vocab)).all()):
+            raise AssertionError(f"{arch}: tokens {tokens}")
+        for name, n in launched.items():
+            counters[name] = counters.get(name, 0) + n
+        del tokens
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, PRNGKey(0), device="cuda")
+        prog = program_params(params, cfg, pol, PRNGKey(0))
+        prompts = randint(PRNGKey(1), (2, 8), 0, cfg.vocab, device="cuda")
+        print(f"{arch}, 1 layer: programmed {programmed_byte_size(prog) / 1e6:.1f} MB")
+
+        def generate(n, params=params, prog=prog, cfg=cfg, prompts=prompts):
+            return greedy_generate(params, cfg, prompts, n, policy=pol,
+                                   compute_dtype=torch.float32, programmed=prog)
+
+        generate(1)  # warm-up
+        proj = [(k, n) for k, n, _ in encdec_calls(cfg, 1)]
+        head = (cfg.d_model, cfg.vocab, 2)
+        calls_step = [(k, n, 2) for k, n in proj] + [head]
+        _generation(f"{arch}, 1 layer", generate, [(k, n, 16) for k, n in proj] + [head],
+                    calls_step, 4, card)
+        del params, prog, generate
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 APPS = ("matmul_re", "monte_carlo", "linsolve", "kmeans", "cwt", "train_mlp", "inference_sweep")
@@ -3563,7 +3863,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(prog="chip_smoke.py")
     ap.add_argument("--only", choices=("train", "rwkv6", "moe", "jamba", "encdec", "rwkv6_train",
-                                       "moe_train"), default=None,
+                                       "moe_train", "jamba_train", "encdec_train",
+                                       "dense_configs"), default=None,
                     help="build the kernels and run this phase alone (no kernels line, no "
                          "final line)")
     args = ap.parse_args(argv)
@@ -3644,6 +3945,15 @@ def main(argv=None) -> int:
     if args.only == "moe_train":
         timed("moe_train", moe_train, timer, card, counters)
         return 0
+    if args.only == "jamba_train":
+        timed("jamba_train", jamba_train, timer, card, counters)
+        return 0
+    if args.only == "encdec_train":
+        timed("encdec_train", encdec_train, timer, card, counters)
+        return 0
+    if args.only == "dense_configs":
+        timed("dense_configs", dense_configs, card, counters)
+        return 0
     timed("check_k1", check_k1, timer, qcfg, summary)
     timed("check_k1_tiles", check_k1_tiles, timer, summary, card)
     timed("check_k2_k3", check_k2_k3, timer, qcfg, summary, card, floor)
@@ -3652,15 +3962,17 @@ def main(argv=None) -> int:
     timed("check_k5", check_k5, timer, qcfg, summary, card)
     timed("check_k6", check_k6, timer, qcfg, summary, card)
     timed("check_init", check_init, card)
-    params, sc, loop, reqs, rep = timed("serve", serve, qcfg, card, counters)
-    sreqs, srep = timed("serve_sampled", serve_sampled, params, qcfg, sc, loop, reqs, rep, card)
-    timed("serve_spec", serve_spec, params, qcfg, sc, loop, reqs, rep, sreqs, srep, card)
-    timed("serve_drift", serve_drift, params, qcfg, sc, loop, reqs, rep, card)
+    scfg = qcfg.replace(n_layers=SERVE_LAYERS)
+    params, sc, loop, reqs, rep = timed("serve", serve, scfg, card, counters)
+    sreqs, srep = timed("serve_sampled", serve_sampled, params, scfg, sc, loop, reqs, rep, card)
+    timed("serve_spec", serve_spec, params, scfg, sc, loop, reqs, rep, sreqs, srep, card)
+    timed("serve_drift", serve_drift, params, scfg, sc, loop, reqs, rep, card)
     del loop
     torch.cuda.empty_cache()
-    timed("launch", launch, params, qcfg, card, counters)
-    summary["k1_long"] = timed("check_k1_long", check_k1_long, timer, card)
     del params
+    torch.cuda.empty_cache()
+    timed("launch", launch, qcfg, card, counters)
+    summary["k1_long"] = timed("check_k1_long", check_k1_long, timer, card)
     torch.cuda.empty_cache()
     timed("rwkv6", rwkv6, card, counters)
     torch.cuda.empty_cache()
@@ -3674,6 +3986,12 @@ def main(argv=None) -> int:
     timed("rwkv6_train", rwkv6_train, timer, card, counters, k1_plain.get("rwkv6_train"))
     torch.cuda.empty_cache()
     timed("moe_train", moe_train, timer, card, counters, k1_plain.get("moe_train"))
+    torch.cuda.empty_cache()
+    timed("jamba_train", jamba_train, timer, card, counters, k1_plain.get("jamba_train"))
+    torch.cuda.empty_cache()
+    timed("encdec_train", encdec_train, timer, card, counters, k1_plain)
+    torch.cuda.empty_cache()
+    timed("dense_configs", dense_configs, card, counters)
     torch.cuda.empty_cache()
     counters["sliced_matmul"] = summary["sliced_matmul"]["launches"]
     counters["flash_attention"] = summary["flash_attention"]["launches"]

@@ -22,7 +22,7 @@ primitive as XLA's CPU backend compiles it, not the derivative of the
 polynomial that evaluates it:
 
 * ``exp``: ``g * y`` (flushed below the normal range); ``log``: ``g /
-  x``; ``sqrt``: ``g * (0.5 / y)``; ``rsqrt``: ``g * (-0.5 * (y / x))``;
+  x``; ``log1p``: ``g / (x + 1)``; ``sqrt``: ``g * (0.5 / y)``; ``rsqrt``: ``g * (-0.5 * (y / x))``;
 * ``sum_last``: ``g`` broadcast over the axis;
 * ``cumsum_last``: the reverse cumulative sum, in XLA's order for it
   (:func:`rcumsum_last`);
@@ -39,11 +39,18 @@ polynomial that evaluates it:
   sum ``s``;
 * ``fma``: ``g * b``, ``g * a`` and ``g``, each summed over the axes it
   broadcasts along (the last one in XLA's order);
-* :func:`logsumexp`: ``exp(x - m) * (g / sum)``.
+* :func:`logsumexp`: ``exp(x - m) * (g / sum)``;
+* ``softplus``: ``g * exp(x - y)`` (``+inf`` replaced by 0 in both,
+  flushed);
+* ``integer_pow``: ``g * (x**(n-1) * n)``.
 
-``tanh``, ``cumsum_last``, ``ftz``, ``logistic``, ``silu`` and
-``softmax`` equal ``jax.vjp`` of the jitted primitive bit for bit
-(``tests/test_torch_rwkv6_train.py``, ``tests/test_torch_moe_train.py``).
+``tanh``, ``cumsum_last``, ``ftz``, ``logistic``, ``silu``,
+``softmax``, ``log1p``, ``softplus`` and ``integer_pow`` equal
+``jax.vjp`` of the jitted primitive bit for bit (the last three with
+XLA's CPU flush of float32 subnormals, in ``g`` and in every result:
+subnormal gradients enter as zeros) (``tests/test_torch_rwkv6_train.py``,
+``tests/test_torch_moe_train.py``, ``tests/test_torch_mamba_train.py``,
+``tests/test_torch_encdec_train.py``).
 
 RWKV6's decay replays XLA's CPU ``tanh`` (:func:`tanh`, Eigen's rational
 approximation) and its flush of float32 subnormals to zero
@@ -67,7 +74,8 @@ import numpy as np
 import torch
 
 __all__ = [
-    "fma", "log", "log1p", "exp", "erf_inv", "tanh", "ftz", "logistic", "silu", "softmax",
+    "fma", "log", "log1p", "softplus", "integer_pow", "exp", "erf_inv", "tanh", "ftz",
+    "logistic", "silu", "softmax",
     "sum_last", "cumsum_last", "rcumsum_last", "logsumexp", "sqrt", "rsqrt", "pow", "cos", "sin",
 ]
 
@@ -280,13 +288,93 @@ _LOG1P_DEN = (
 )
 
 
-def log1p(x: torch.Tensor) -> torch.Tensor:
-    """XLA's float32 ``log1p``: ``log(1 + x)``, or for ``|x| < sqrt(2) -
-    1`` the Cephes rational approximation.  ``x > -1``."""
+def _log1p(x: torch.Tensor) -> torch.Tensor:
     x2 = x * x
     r = _horner(x, _LOG1P_NUM) / _horner(x, _LOG1P_DEN)
     small = x + fma(x2, -0.5, (x * x2) * r)
     return torch.where(x.abs() < _LOG1P_SMALL, small, _log(x + 1.0))
+
+
+class _Log1p(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _ftz_t(_log1p(x))
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return _ftz_t(_ftz_t(g) / (x + 1.0))
+
+
+def log1p(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``log1p``: ``log(1 + x)``, or for ``|x| < sqrt(2) -
+    1`` the Cephes rational approximation, results below the normal
+    range flushed to zero.  ``x > -1``.  Gradient JAX's ``g / (x +
+    1)``."""
+    return _Log1p.apply(x)
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    y = torch.clamp_min(x, 0.0) + _log1p(_ftz_t(_exp(-x.abs())))
+    return _ftz_t(torch.where(torch.isnan(x), x, y))
+
+
+class _Softplus(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = _softplus(x)
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        inf = float("inf")
+        xs = torch.where(x == inf, torch.zeros_like(x), x)
+        ys = torch.where(y == inf, torch.zeros_like(y), y)
+        return _ftz_t(_ftz_t(g) * _ftz_t(_exp(xs - ys)))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` (``logaddexp(x, 0)``) as XLA's CPU code computes
+    it: ``max(x, 0) + log1p(exp(-|x|))`` (``x`` itself where it is NaN)
+    with XLA's ``exp`` and ``log1p``, results below the float32 normal
+    range flushed to zero.  Gradient as XLA compiles JAX's ``logaddexp``
+    rule: ``g * exp(x - y)``, ``x`` and the output ``y`` each with ``+inf``
+    replaced by 0, the ``exp`` and the product flushed."""
+    return _Softplus.apply(x)
+
+
+class _IntegerPow(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.save_for_backward(x)
+        ctx.n = n
+        return _ipow(x, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return _ftz_t(_ftz_t(g) * _ftz_t(_ipow(x, ctx.n - 1, flush=True) * float(ctx.n))), None
+
+
+def _ipow(x: torch.Tensor, n: int, flush: bool = False) -> torch.Tensor:
+    """``x ** n`` as XLA expands ``integer_pow``: ``((x * x) * x) ...``,
+    with ``flush`` each product flushed below the normal range."""
+    f = _ftz_t if flush else (lambda t: t)  # noqa: E731
+    x = f(x)
+    y = torch.ones_like(x) if n == 0 else x
+    for _ in range(n - 1):
+        y = f(y * x)
+    return y
+
+
+def integer_pow(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x ** n`` for an integer ``n >= 1`` (``lax.integer_pow``) as XLA's
+    CPU code computes it, ``((x * x) * x) ...`` in order.  Gradient JAX's
+    ``g * (n * x ** (n - 1))``, compiled as ``g * (x**(n-1) * n)``."""
+    return _IntegerPow.apply(x, n)
 
 
 # erf_inv (stablehlo's chlo legalisation, Giles' single-precision fit)
@@ -302,7 +390,7 @@ _ERFINV_GE5 = (
 
 def erf_inv(x: torch.Tensor) -> torch.Tensor:
     """XLA's float32 ``erf_inv`` for ``x`` in (-1, 1)."""
-    w = -log1p(x * -x)
+    w = -_log1p(x * -x)
     lt = w < 5.0
     w = torch.where(lt, w - 2.5, _sqrt(w) - 3.0)
     coef = lambda i: torch.where(  # noqa: E731

@@ -44,7 +44,7 @@ from repro_torch.models import init_params
 from repro_torch.optim import adamw, cosine_schedule
 from repro_torch.train import init_train_state, make_train_step
 
-__all__ = ["main"]
+__all__ = ["config_of", "main", "parse_args", "run"]
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -73,13 +73,23 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None, *, return_state: bool = False, report: dict | None = None):
-    """Run the trainer with ``argv`` (default ``sys.argv[1:]``).  Returns
-    the per-step losses (host floats), as the reference does; with
-    ``return_state`` also the final train state: ``(history, state)``.
-    A ``report`` dict receives each step's ``loss``, ``grad_norm`` and
-    host time ``step_s`` (lists)."""
-    args = _parser().parse_args(argv)
+def parse_args(argv=None) -> argparse.Namespace:
+    """The launcher's flags from ``argv`` (default ``sys.argv[1:]``)."""
+    return _parser().parse_args(argv)
+
+
+def config_of(args: argparse.Namespace):
+    """The architecture ``args`` name: ``--arch``, reduced by ``--smoke``,
+    cut to ``--layers``."""
+    cfg = arch_configs.get_smoke(args.arch) if args.smoke else arch_configs.get(args.arch)
+    return cfg if args.layers is None else cfg.replace(n_layers=args.layers)
+
+
+def run(cfg, args: argparse.Namespace, *, return_state: bool = False,
+        report: dict | None = None):
+    """Train ``cfg`` as the flags ``args`` say (:func:`parse_args`; the
+    model flags ``--arch``, ``--smoke`` and ``--layers`` aside).  Returns
+    what :func:`main` returns."""
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but no CUDA device is available")
     if args.kernels == "on" and args.device != "cuda":
@@ -87,9 +97,6 @@ def main(argv=None, *, return_state: bool = False, report: dict | None = None):
     dev = args.device
     if dev == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    cfg = arch_configs.get_smoke(args.arch) if args.smoke else arch_configs.get(args.arch)
-    if args.layers is not None:
-        cfg = cfg.replace(n_layers=args.layers)
     policy = make_policy(args.policy)
     opt = adamw(lr=cosine_schedule(args.lr, warmup=5, total=args.steps))
     step_fn = make_train_step(
@@ -137,6 +144,16 @@ def main(argv=None, *, return_state: bool = False, report: dict | None = None):
     if history:
         print(f"final loss: {history[-1]:.4f} (start {history[0]:.4f})")
     return (history, state) if return_state else history
+
+
+def main(argv=None, *, return_state: bool = False, report: dict | None = None):
+    """Run the trainer with ``argv`` (default ``sys.argv[1:]``).  Returns
+    the per-step losses (host floats), as the reference does; with
+    ``return_state`` also the final train state: ``(history, state)``.
+    A ``report`` dict receives each step's ``loss``, ``grad_norm`` and
+    host time ``step_s`` (lists)."""
+    args = parse_args(argv)
+    return run(config_of(args), args, return_state=return_state, report=report)
 
 
 if __name__ == "__main__":

@@ -251,6 +251,27 @@ def norm(x, p, kind: str):
 
 _SQRT_2_OVER_PI = float(np.float32(np.sqrt(2 / np.pi)))
 _GELU_C = float(np.float32(0.044715))
+# XLA folds the two constants of the cube's gradient into one
+_GELU_C3 = float(np.float32(np.float32(_SQRT_2_OVER_PI) * np.float32(_GELU_C)))
+
+
+class _Gelu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        inner = xmath.fma(xmath.integer_pow(x, 3), _GELU_C, x, wait=False)
+        t = xmath.tanh(inner * _SQRT_2_OVER_PI)
+        ctx.save_for_backward(x, t)
+        return x * ((t + 1.0) * 0.5)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, t = ctx.saved_tensors
+        g = xmath.ftz(g)
+        half = (t + 1.0) * 0.5
+        a = ((x * g) * 0.5) * (1.0 - t)
+        a = xmath.fma(a, t, a, wait=False)  # tanh's rule
+        gx = xmath.fma(g, half, a * _SQRT_2_OVER_PI, wait=False)
+        return xmath.ftz(xmath.fma(a * _GELU_C3, (x * x) * 3.0, gx, wait=False))
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -258,10 +279,14 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     computes it: ``x * ((1 + tanh(sqrt(2/pi) * (x + 0.044715 x**3))) *
     0.5)`` with ``x**3 = (x * x) * x``, the ``0.044715 x**3 + x`` one fused
     multiply-add and XLA's ``tanh`` (:func:`~repro_torch.core.xmath.tanh`).
-    Bit for bit the jitted reference on float32 (no gradient rule)."""
-    x3 = x * x * x
-    inner = xmath.fma(x3, _GELU_C, x, wait=False)
-    return x * ((xmath.tanh(inner * _SQRT_2_OVER_PI) + 1.0) * 0.5)
+    Bit for bit the jitted reference on float32.  Its gradient is JAX's
+    (the rules of ``integer_pow``, the fused multiply-add and ``tanh``),
+    as XLA compiles and simplifies it, bit for bit: with ``a`` the ``tanh``
+    rule's ``t + t*tanh`` of ``t = (x*g*0.5) * (1 - tanh)``, ``g *
+    ((1 + tanh) * 0.5) + a * sqrt(2/pi)``, then ``+ (a * c) * (x*x * 3)``,
+    each sum one fused multiply-add and ``c`` the float32 product of the
+    two constants."""
+    return _Gelu.apply(x)
 
 
 def activation(x: torch.Tensor, kind: str) -> torch.Tensor:

@@ -29,10 +29,12 @@ output, with the reference's keys: ``fold_in(rng, 1000 + i)`` /
 its dense cache carries ``cross_kv``, the encoder's K / V of every
 decoder layer.  The paged cache, chunked prefill and speculative verify
 take homogeneous decoder-only attention layers (with or without MoE)
-only, as the reference's.  :func:`loss_fn` (the trainer) takes
-decoder-only attention layers with the MLP only: RWKV6, Mamba, MoE,
-encoder-decoder and vision-prefixed models serve but are not ported to
-training yet.
+only, as the reference's.  :func:`loss_fn` (the trainer) takes every
+family: dense, RWKV6, Mamba and the hybrid's groups, MoE, the
+encoder-decoder (with ``remat`` each encoder layer and each decoder
+layer with its cross-attention checkpointed, as the reference's
+``enc_step`` / ``dec_step``) and the vision prefix (its positions
+masked out of the loss).
 """
 from __future__ import annotations
 
@@ -218,8 +220,8 @@ def forward(
     remat = remat and mode == "train" and torch.is_grad_enabled()
     if cfg.encoder is not None:
         return _encdec_forward(params, cfg, batch, policy=policy, rng=rng, mode=mode,
-                               compute_dtype=compute_dtype, programmed=programmed,
-                               kernels=kernels)
+                               compute_dtype=compute_dtype, remat=remat,
+                               programmed=programmed, kernels=kernels)
     x = _embed_inputs(params, cfg, batch, compute_dtype)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
@@ -262,33 +264,24 @@ def loss_fn(
     kernels: bool = True,
 ):
     """Mean next-token cross entropy of ``batch`` (``tokens``, ``labels``
-    (B, S); labels < 0 are masked), a 0-d float32 tensor.  The sequence
+    (B, S); labels < 0 are masked; a vision model's ``patch_embeds``
+    positions take the label -1 in front, as the reference's), a 0-d
+    float32 tensor.  The sequence
     is cut into ``loss_chunk``-token chunks (the last padded with masked
     labels); each chunk runs the vocab head (programmed per chunk from
     ``rng``, as the reference's), :func:`~repro_torch.core.xmath.logsumexp`
     and the picked logit, and with ``remat`` is recomputed in the
     backward pass.  The sum over chunks and the count run in order from
-    zero, then ``tot / max(cnt, 1)``.  Trains dense attention, RWKV6 and
-    MoE layers (an MoE layer's expert stacks straight-through, one
-    programming of a stack a product); raises ``NotImplementedError``
-    for Mamba layers (a hybrid's too), encoder-decoder and
-    vision-prefixed models (their gradients are not held against the
-    reference's)."""
-    if cfg.encoder is not None:
-        raise NotImplementedError("training encoder-decoder models is not ported to "
-                                  "repro_torch yet")
-    if cfg.vision_prefix:
-        raise NotImplementedError("training vision-prefixed models is not ported to "
-                                  "repro_torch yet")
-    if any(cfg.layer_kind(i)[0] == "ssm" for i in range(cfg.n_layers)) and \
-            cfg.ssm.kind != "rwkv6":
-        raise NotImplementedError("training ssm layers of kind Mamba is not ported to "
-                                  "repro_torch yet")
+    zero, then ``tot / max(cnt, 1)``.  Trains every family (an MoE
+    layer's expert stacks straight-through, one programming of a stack a
+    product)."""
     x = forward(
         params, cfg, batch, policy=policy, rng=rng, mode="train",
         compute_dtype=compute_dtype, remat=remat, kernels=kernels,
     )
     labels = batch["labels"]
+    if cfg.vision_prefix and "patch_embeds" in batch:
+        labels = F.pad(labels, (cfg.vision_prefix, 0), value=-1)
     b, s, d = x.shape
     ck = min(loss_chunk, s)
     if s % ck:  # pad to a whole number of chunks; padded labels masked
@@ -573,7 +566,7 @@ def _encoder_layer(p, x, cfg, *, policy, rng, idx, positions, prepared=None, ker
                             prepared=prepared, kernels=kernels)
 
 
-def _encdec_forward(params, cfg, batch, *, policy, rng, mode, compute_dtype, programmed,
+def _encdec_forward(params, cfg, batch, *, policy, rng, mode, compute_dtype, remat, programmed,
                     kernels):
     """The whisper encoder-decoder on ``batch["frames"]`` (B, F, d) and
     ``batch["tokens"]`` (B, S): the encoder's non-causal layers over the
@@ -583,7 +576,10 @@ def _encdec_forward(params, cfg, batch, *, policy, rng, mode, compute_dtype, pro
     theirs.  Returns the decoder's hidden states after the final norm;
     with ``mode == "prefill"`` also ``{"seg0": {"k", "v"}, "cross_kv":
     {"k", "v"}}``, the self-attention K / V (n_layers, B, S, KV, hd) and
-    the cross-attention's (n_layers, B, F, KV, hd)."""
+    the cross-attention's (n_layers, B, F, KV, hd).  With ``remat`` each
+    encoder layer and each decoder layer (its self-attention block and
+    its cross-attention, K / V projections included) is recomputed in the
+    backward pass."""
     frames = batch["frames"].to(compute_dtype)
     b, f, d = frames.shape
     dev = frames.device
@@ -593,9 +589,12 @@ def _encdec_forward(params, cfg, batch, *, policy, rng, mode, compute_dtype, pro
     nenc = cfg.encoder.n_layers
     prog_enc = pget(pget(programmed, "encoder"), "blocks")
     for idx, p_l in enumerate(unstack_layers(params["encoder"]["blocks"], nenc)):
-        x = _encoder_layer(p_l, x, cfg, policy=policy, rng=rng, idx=idx, positions=pos_e,
-                           kernels=kernels,
-                           prepared=None if prog_enc is None else layer_slice(prog_enc, idx))
+        kw = dict(policy=policy, rng=rng, idx=idx, positions=pos_e, kernels=kernels,
+                  prepared=None if prog_enc is None else layer_slice(prog_enc, idx))
+        if remat:
+            x = remat_call(lambda x, p_l=p_l, kw=kw: _encoder_layer(p_l, x, cfg, **kw), x)
+        else:
+            x = _encoder_layer(p_l, x, cfg, **kw)
     enc_out = norm(x, params["encoder"]["final_norm"], cfg.norm)
 
     tokens = batch["tokens"]
@@ -608,10 +607,9 @@ def _encdec_forward(params, cfg, batch, *, policy, rng, mode, compute_dtype, pro
     n = cfg.n_layers
     layers = zip(unstack_layers(params["blocks"]["seg0"], n), unstack_layers(params["cross"], n))
     states, cross_k, cross_v = [], [], []
-    for idx, (p_l, p_x) in enumerate(layers):
-        rng_l = fold_in(rng, idx)
-        prog_l = None if prog_seg0 is None else layer_slice(prog_seg0, idx)
-        prog_x = None if prog_cross is None else layer_slice(prog_cross, idx)
+
+    def dec_layer(xd, enc_out, p_l, p_x, rng_l, prog_l, prog_x):
+        """Decoder layer: self-attention block, then the cross-attention."""
         xd, st = block_forward(p_l, xd, cfg, 0, policy=policy, rng=rng_l, positions=pos_d,
                                prepared=prog_l, kernels=kernels)
         kw = dict(policy=policy, rng=rng_l, kernels=kernels)
@@ -622,7 +620,16 @@ def _encdec_forward(params, cfg, batch, *, policy, rng, mode, compute_dtype, pro
                    prepared=pget(prog_x, "v_proj"), **kw).reshape(b, f, nkv, hd)
         y, _ = attention_block(p_x, h, cfg, positions=pos_d, name="dec.cross", kv_in=(kx, vx),
                                causal=False, prepared=prog_x, **kw)
-        xd = xd + y
+        return xd + y, st, kx, vx
+
+    for idx, (p_l, p_x) in enumerate(layers):
+        args = (p_l, p_x, fold_in(rng, idx),
+                None if prog_seg0 is None else layer_slice(prog_seg0, idx),
+                None if prog_cross is None else layer_slice(prog_cross, idx))
+        if remat:
+            xd = remat_call(lambda xd, e, args=args: dec_layer(xd, e, *args)[0], xd, enc_out)
+            continue
+        xd, st, kx, vx = dec_layer(xd, enc_out, *args)
         if mode == "prefill":
             states.append(st)
             cross_k.append(kx)

@@ -304,10 +304,35 @@ def _causal_conv(x, w, b, cache=None):
     return out + b.to(x.dtype), (xp[:, -(k - 1):] if k > 1 else None)
 
 
-def _softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus`` (``logaddexp(x, 0)``) as XLA's CPU code computes
-    it: ``max(x, 0) + log1p(exp(-|x|))``.  Finite inputs."""
-    return xmath.ftz(torch.clamp_min(x, 0.0) + xmath.log1p(_exp(-x.abs())))
+class _Scan(torch.autograd.Function):
+    """One chunk of the selective scan: ``da``, ``dbx`` (B, C, d_in, N),
+    ``cmat`` (B, C, N), ``h0`` (B, d_in, N) to the readouts ``ys`` (B, C,
+    d_in) and the last state.  The forward writes every state of ``h =
+    da[:, t] * h + dbx[:, t]`` in place; the backward is the reverse scan: with
+    ``gh_t = C_t g_y_t + da_{t+1} gh_{t+1}`` (``gh`` of the last state
+    entering at the end), ``g_da_t = gh_t h_{t-1}``, ``g_dbx_t = gh_t``,
+    ``g_C_t = h_t . g_y_t`` and ``g_h0 = da_0 gh_0``."""
+
+    @staticmethod
+    def forward(ctx, da, dbx, cmat, h0):
+        hs, h = torch.empty_like(da), h0
+        for t in range(da.shape[1]):
+            h = torch.add(da[:, t] * h, dbx[:, t], out=hs[:, t])
+        ctx.save_for_backward(da, cmat, h0, hs)
+        return torch.einsum("bcdn,bcn->bcd", hs, cmat), hs[:, -1].clone()
+
+    @staticmethod
+    def backward(ctx, g_ys, g_h):
+        da, cmat, h0, hs = ctx.saved_tensors
+        g_c = torch.einsum("bcdn,bcd->bcn", hs, g_ys)
+        g_da = torch.empty_like(da)
+        g_dbx = torch.empty_like(da)
+        gh = torch.zeros_like(h0) if g_h is None else g_h
+        for t in range(da.shape[1] - 1, -1, -1):
+            gh = torch.add(gh, g_ys[:, t, :, None] * cmat[:, t, None, :], out=g_dbx[:, t])
+            torch.mul(gh, hs[:, t - 1] if t else h0, out=g_da[:, t])
+            gh = da[:, t] * gh
+        return g_da, g_dbx, g_c, gh
 
 
 def _selective_scan(xc, dt, bmat, cmat, a, h):
@@ -315,20 +340,21 @@ def _selective_scan(xc, dt, bmat, cmat, a, h):
     cmat (B, S, N), a (d_in, N), h (B, d_in, N), all float32.  Per token
     ``h = exp(dt a) * h + (dt x) B`` and ``y = h . C``; the decays and
     inputs of ``SCAN_CHUNK`` tokens are computed at once, the readouts of
-    their states in one product.  Returns (y (B, S, d_in), the last h)."""
-    b, s, d_in = xc.shape
+    their states in one product.  Each chunk's recurrence is one
+    :class:`_Scan` (its reverse scan the backward); the decays and inputs
+    stay under autograd (``exp``'s rule).  Returns (y (B, S,
+    d_in), the last h)."""
+    s = xc.shape[1]
     ys = []
     for c0 in range(0, s, SCAN_CHUNK):
         c1 = min(c0 + SCAN_CHUNK, s)
         dtc = dt[:, c0:c1, :, None]
         da = _exp(dtc * a)  # (B, C, d_in, N)
         dbx = (dtc * xc[:, c0:c1, :, None]) * bmat[:, c0:c1, None, :]
-        hs = torch.empty_like(da)
-        for t in range(c1 - c0):
-            h = torch.add(da[:, t] * h, dbx[:, t], out=hs[:, t])
-        ys.append(torch.einsum("bcdn,bcn->bcd", hs, cmat[:, c0:c1]))
+        y, h = _Scan.apply(da, dbx, cmat[:, c0:c1], h)
+        ys.append(y)
         del da, dbx
-    return (ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)), h.clone()
+    return (ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)), h
 
 
 def mamba_block(p, x, cfg, *, policy, rng, name, state=None, conv_cache=None, prepared=None,
@@ -349,7 +375,7 @@ def mamba_block(p, x, cfg, *, policy, rng, name, state=None, conv_cache=None, pr
     cmat = xdbc[..., dt_rank + d_state:].to(torch.float32)
     dt = dense(p["dt_proj"], xdbc[..., :dt_rank], name=f"{name}.dt",
                prepared=pget(prepared, "dt_proj"), **kw)
-    dt = _softplus(dt.to(torch.float32))
+    dt = xmath.softplus(dt.to(torch.float32))
     a = -_exp(p["a_log"])
     if state is None:
         state = torch.zeros((b, d_in, d_state), dtype=torch.float32, device=x.device)

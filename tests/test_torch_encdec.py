@@ -26,9 +26,10 @@ them.  Classes:
 
 The port's own contracts: programmed equals per-call programming, bit
 for bit (``mem_fast`` and ``mem_faithful``); the programmed tree has the
-reference's layout; the paged cache, the ``ServeLoop`` (``--requests``)
-and the trainer refuse the encoder-decoder, as the reference's do (the
-trainer: not ported yet).
+reference's layout; the paged cache and the ``ServeLoop``
+(``--requests``) refuse the encoder-decoder, as the reference's do, and
+the trainer's loss trains it (``test_encdec_refusals_match_reference``):
+within rel 1e-5 of the reference's jitted loss.
 """
 import functools
 
@@ -45,6 +46,7 @@ from repro.launch import serve as j_serve
 from repro.models import attention as jattention
 from repro.models import common as jcommon
 from repro.models import init_params as j_init_params
+from repro.models import loss_fn as j_loss_fn
 from repro.models import transformer as jtransformer
 from repro.models.model import _sinusoid as j_sinusoid
 from repro.models.model import decode_step as j_decode_step
@@ -69,7 +71,7 @@ from repro_torch.models import (
 )
 from repro_torch.models import attention as tattention
 from repro_torch.models import model as tmodel
-from repro_torch.models.common import activation, gelu, layer_slice, tree_leaves
+from repro_torch.models.common import activation, gelu, layer_slice, tree_leaves, tree_map
 from repro_torch.serve import ServeConfig, ServeLoop, greedy_generate
 from repro_torch.serve.engine import make_prefill_step
 
@@ -320,6 +322,13 @@ def test_encdec_refusals_match_reference():
         JServeLoop(m["jparams"], jcfg, JServeConfig())
     with pytest.raises(NotImplementedError, match="side inputs"):
         serve.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--requests", "2"])
-    _, tb = batches(m)
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        loss_fn(m["params"], cfg, {**tb, "labels": tb["tokens"]})
+    # the trainer trains it (the test's name is from when it refused it): the
+    # loss within rel 1e-5 of the reference's jitted loss, the gradients finite
+    jb, tb = batches(m)
+    p = tree_map(lambda t: t.clone().requires_grad_(True), m["params"])
+    loss = loss_fn(p, cfg, {**tb, "labels": tb["tokens"]}, compute_dtype=torch.float32)
+    grads = torch.autograd.grad(loss, tree_leaves(p))
+    want = jax.jit(lambda p, b: j_loss_fn(p, jcfg, b, compute_dtype=jnp.float32))(
+        m["jparams"], {**jb, "labels": jb["tokens"]})
+    assert abs(float(loss.detach()) - float(want)) <= 1e-5 * abs(float(want))
+    assert all(bool(torch.isfinite(g).all()) for g in grads)

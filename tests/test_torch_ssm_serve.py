@@ -28,9 +28,12 @@ The port's own contracts (no reference involved):
 * rows where ``active`` is False keep ``s``, ``x_prev`` and ``pos`` bit
   for bit, and the active rows are the unmasked step's;
 * the ``ServeLoop``, ``init_paged_cache``, ``block_chunk`` and
-  ``block_verify`` refuse rwkv6 as the reference's do; the trainer's
-  loss, the paged cache and the chunk / verify blocks refuse Mamba layers
-  and hybrid groups (a hybrid's MoE layers too);
+  ``block_verify`` refuse rwkv6 as the reference's do; the paged cache
+  and the chunk / verify blocks refuse Mamba layers and hybrid groups (a
+  hybrid's MoE layers too), and the trainer's loss trains them
+  (``test_unported_layer_kinds_raise``, named when it refused them): a
+  Mamba model and two hybrids, the loss within rel 1e-5 of the
+  reference's jitted loss;
 * the trainer trains rwkv6-smoke (``test_trainer_refuses_rwkv6``, named
   when the trainer refused it): ``loss_fn`` on 16 tokens (the scan) and
   its gradients against the reference's jitted ``value_and_grad`` (loss
@@ -59,6 +62,8 @@ from repro.models import loss_fn as j_loss_fn
 from repro.models import transformer as jtransformer
 from repro.models.model import decode_step as j_decode_step
 from repro.models.model import forward as j_forward
+from repro.models.config import MoEConfig as JMoEConfig
+from repro.models.config import SSMConfig as JSSMConfig
 from repro.models.model import init_paged_cache as j_init_paged_cache
 from repro.serve import ServeConfig as JServeConfig
 from repro.serve import ServeLoop as JServeLoop
@@ -313,22 +318,37 @@ def test_recurrent_serving_refusals_match_reference(model):
 
 def test_unported_layer_kinds_raise(model):
     """Mamba layers and hybrid groups serve through the dense path
-    (``test_torch_hybrid_serve.py``); the surfaces that still refuse them
-    are the trainer's loss, the paged cache and the chunked-prefill and
-    speculative-verify blocks."""
+    (``test_torch_hybrid_serve.py``) and train (the name is from when the
+    trainer refused them): ``loss_fn`` on a Mamba model and on two hybrids
+    (with and without MoE layers) equals the reference's jitted loss
+    within rel 1e-5, its gradients finite.  The surfaces that still refuse
+    them, as the reference's do, are the paged cache and the
+    chunked-prefill and speculative-verify blocks."""
     cfg, qcfg = model["cfg"], get_smoke("qwen2-0.5b")
-    mamba = cfg.replace(ssm=SSMConfig(kind="mamba", d_state=8))
-    hybrids = (qcfg.replace(family="hybrid", hybrid_period=2, hybrid_attn_idx=(0,),
-                            hybrid_moe_idx=(1,), ssm=SSMConfig(kind="mamba", d_state=8),
-                            moe=MoEConfig(n_experts=4, top_k=2, d_expert=64)),
-               qcfg.replace(family="hybrid", hybrid_period=2, hybrid_attn_idx=(0,),
-                            ssm=SSMConfig(kind="mamba", d_state=8)))
+    jcfg, jqcfg = model["jcfg"], j_get_smoke("qwen2-0.5b")
+    mamba = dict(ssm=(SSMConfig(kind="mamba", d_state=8), JSSMConfig(kind="mamba", d_state=8)))
+    hybrid = dict(family=("hybrid",) * 2, hybrid_period=(2, 2), hybrid_attn_idx=((0,), (0,)),
+                  **mamba)
+    moe = dict(hybrid_moe_idx=((1,), (1,)),
+               moe=(MoEConfig(n_experts=4, top_k=2, d_expert=64),
+                    JMoEConfig(n_experts=4, top_k=2, d_expert=64)))
+    pairs = [(c.replace(**{k: v[0] for k, v in kw.items()}),
+              jc.replace(**{k: v[1] for k, v in kw.items()}))
+             for c, jc, kw in ((cfg, jcfg, mamba), (qcfg, jqcfg, {**hybrid, **moe}),
+                               (qcfg, jqcfg, hybrid))]
     kw = dict(policy=MemPolicy(default=None), rng=None, state={}, prepared=None)
-    for bad in (mamba,) + hybrids:
+    toks = model["prompts"]
+    for bad, jbad in pairs:
         params = init_params(bad, 0, device="cpu")
-        toks = torch.from_numpy(model["prompts"]).long()
-        with pytest.raises(NotImplementedError, match="training ssm layers"):
-            loss_fn(params, bad, {"tokens": toks, "labels": toks}, compute_dtype=torch.float32)
+        p = tree_map(lambda t: t.clone().requires_grad_(True), params)
+        loss = loss_fn(p, bad, {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(toks)},
+                       compute_dtype=torch.float32)
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        want = jax.jit(lambda p: j_loss_fn(
+            p, jbad, {"tokens": jnp.asarray(toks), "labels": jnp.asarray(toks)},
+            compute_dtype=jnp.float32))(tree_map(lambda t: jnp.asarray(t.numpy()), params))
+        assert abs(float(loss.detach()) - float(want)) <= 1e-5 * abs(float(want)), bad.family
+        assert all(bool(torch.isfinite(g).all()) for g in grads)
         with pytest.raises(NotImplementedError, match="all-attention"):
             init_paged_cache(bad, 2, 32, 8, 9, device="cpu")
         p = layer_slice(params["blocks"]["seg0"], 0)

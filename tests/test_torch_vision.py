@@ -24,7 +24,8 @@ draws them, float32.  Classes:
 * a dense cache shorter than the prefill raises ``ValueError`` on both
   sides (qwen2-smoke with ``max_len`` 4 after an 8-token prompt, and
   phi3-vision-smoke through ``greedy_generate``'s default ``max_len``);
-* the trainer's loss refuses both new families (not ported yet), the
+* the trainer's loss trains both new families on the launcher's side
+  inputs, the loss within rel 1e-5 of the reference's jitted loss; the
   ``ServeLoop`` refuses side inputs, as the reference's does.
 """
 import functools
@@ -43,6 +44,7 @@ from repro.core import spec as jspec
 from repro.core.layers import MemPolicy as JMemPolicy
 from repro.launch import serve as j_serve
 from repro.models import init_params as j_init_params
+from repro.models import loss_fn as j_loss_fn
 from repro.models.model import _embed_inputs as j_embed_inputs
 from repro.models.model import forward as j_forward
 from repro.serve import greedy_generate as j_greedy_generate
@@ -53,7 +55,7 @@ from repro_torch.core import DPEConfig, MemPolicy, spec
 from repro_torch.launch import serve
 from repro_torch.models import forward, init_params, loss_fn, program_params
 from repro_torch.models import model as tmodel
-from repro_torch.models.common import tree_leaves
+from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.serve import ServeConfig, ServeLoop, greedy_generate
 
 torch.set_num_threads(1)
@@ -233,11 +235,21 @@ def test_full_config_matches_reference():
 
 @pytest.mark.parametrize("arch", [ARCH, "whisper-tiny"])
 def test_trainer_and_serve_loop_refuse_side_inputs(arch):
-    cfg = get_smoke(arch)
+    """The trainer's loss trains both families with their side inputs (the
+    name is from when it refused them): the loss within rel 1e-5 of the
+    reference's jitted loss on the same batch, the gradients finite; the
+    ``ServeLoop`` refuses side inputs, as the reference's does."""
+    cfg, jcfg = get_smoke(arch), j_get_smoke(arch)
     params = init_params(cfg, 0, device="cpu")
-    tokens = torch.zeros((1, 4), dtype=torch.int32)
-    batch = {"tokens": tokens, "labels": tokens, **serve.side_inputs(cfg, 1, "cpu")}
-    with pytest.raises(NotImplementedError, match="training .* is not ported"):
-        loss_fn(params, cfg, batch)
+    tokens = torch.arange(4, dtype=torch.int32)[None] * 7
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, 1), **serve.side_inputs(cfg, 1, "cpu")}
+    p = tree_map(lambda t: t.clone().requires_grad_(True), params)
+    loss = loss_fn(p, cfg, batch, compute_dtype=torch.float32)
+    grads = torch.autograd.grad(loss, tree_leaves(p))
+    want = jax.jit(lambda p, b: j_loss_fn(p, jcfg, b, compute_dtype=jnp.float32))(
+        tree_map(lambda t: jnp.asarray(t.numpy()), params),
+        {k: jnp.asarray(v.numpy()) for k, v in batch.items()})
+    assert abs(float(loss.detach()) - float(want)) <= 1e-5 * abs(float(want))
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
     with pytest.raises(NotImplementedError, match="side inputs"):
         ServeLoop(params, cfg, ServeConfig(device="cpu"))
